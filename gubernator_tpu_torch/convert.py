@@ -1,0 +1,103 @@
+"""State carried across between the JAX package and the port.
+
+The JAX package holds its state as jax arrays; the port as torch tensors.
+These functions take the JAX package's arrays as numpy (np.asarray of a jax
+array, or any array-like) and give the port's tensors, and back, checking
+the layouts both packages share:
+
+- the i64[C, 8] table and the i64[R, S, C, 8] sharded table;
+- a staging buffer: wide i64[.., 9, W], compact i32[.., 5, W], lean
+  i32[.., W] lane words with their i64[128, 4] config table;
+- the GLOBAL sync's GlobalConfig and GlobalMirror.
+
+Nothing here imports JAX: a caller that has jax arrays converts them with
+np.asarray first (or passes them, since np.asarray accepts them).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gubernator_tpu_torch.ops.decide import COMPACT_ROWS, LEAN_MAX_CFG, TABLE_ROW_FIELDS
+from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, GlobalMirror
+from gubernator_tpu_torch.utils.platform import resolve_device
+
+_NP_TO_TORCH = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
+                np.dtype(np.bool_): torch.bool}
+
+
+def to_torch(a, dtype, device=None) -> torch.Tensor:
+    """An array-like of exactly numpy `dtype` as a contiguous tensor on
+    `device` (the card unless the caller says otherwise). The values are
+    copied, never reinterpreted."""
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype != np.dtype(dtype):
+        raise ValueError(f"expected {np.dtype(dtype)}, got {arr.dtype}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def table_to_torch(table, device=None) -> torch.Tensor:
+    """i64[C, 8] or i64[R, S, C, 8] table -> tensor."""
+    arr = np.asarray(table)
+    if arr.ndim not in (2, 4) or arr.shape[-1] != TABLE_ROW_FIELDS:
+        raise ValueError(f"a table is i64[C, 8] or i64[R, S, C, 8], got "
+                         f"{arr.shape}")
+    return to_torch(arr, np.int64, device)
+
+
+def table_to_numpy(state: torch.Tensor) -> np.ndarray:
+    if state.dtype != torch.int64 or state.shape[-1] != TABLE_ROW_FIELDS:
+        raise ValueError(f"not a table: {state.dtype}{tuple(state.shape)}")
+    return to_numpy(state)
+
+
+def staging_to_torch(packed, cfg=None, device=None):
+    """A staging buffer -> tensor(s). Wide is i64 with 9 rows, compact i32
+    with 5 rows, lean i32 lane words (pass its i64[128, 4] config table as
+    `cfg`; returns (lanes, cfg) then)."""
+    arr = np.asarray(packed)
+    if cfg is not None:
+        cfg_arr = np.asarray(cfg)
+        if arr.dtype != np.int32 or cfg_arr.shape != (LEAN_MAX_CFG, 4):
+            raise ValueError("lean staging is i32 lane words plus an "
+                             f"i64[{LEAN_MAX_CFG}, 4] config table")
+        return (to_torch(arr, np.int32, device),
+                to_torch(cfg_arr, np.int64, device))
+    if arr.dtype == np.int64 and arr.ndim >= 2 and arr.shape[-2] == 9:
+        return to_torch(arr, np.int64, device)
+    if arr.dtype == np.int32 and arr.ndim >= 2 and arr.shape[-2] == COMPACT_ROWS:
+        return to_torch(arr, np.int32, device)
+    raise ValueError(f"not a wide or compact staging buffer: "
+                     f"{arr.dtype}{arr.shape}")
+
+
+_CONFIG_DTYPES = dict(slot=np.int32, owner=np.int32, limit=np.int64,
+                      duration=np.int64, algorithm=np.int32,
+                      behavior=np.int32, greg_expire=np.int64,
+                      greg_interval=np.int64, fresh=np.bool_)
+_MIRROR_DTYPES = dict(status=np.int32, limit=np.int64, remaining=np.int64,
+                      reset_time=np.int64)
+
+
+def global_config_to_torch(cfg, device=None) -> GlobalConfig:
+    """Any object with the GlobalConfig fields (the JAX package's
+    GlobalConfig included) -> the port's GlobalConfig."""
+    return GlobalConfig(**{f: to_torch(getattr(cfg, f), dt, device)
+                           for f, dt in _CONFIG_DTYPES.items()})
+
+
+def global_mirror_to_torch(mirror, device=None) -> GlobalMirror:
+    return GlobalMirror(**{f: to_torch(getattr(mirror, f), dt, device)
+                           for f, dt in _MIRROR_DTYPES.items()})
+
+
+def fields_to_numpy(nt) -> dict:
+    """{field: numpy array} of a GlobalConfig or GlobalMirror, the port's
+    or the JAX package's."""
+    return {f: to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+            for f, v in nt._asdict().items()}

@@ -1,0 +1,601 @@
+"""The batched rate-limit decision: plain PyTorch version and CUDA kernel.
+
+The counterpart of the JAX package's ops/decide.py. State is one row-major
+i64[C, 8] tensor, 64 bytes per key slot (~640 MB at 10M keys). A window of
+requests is one gather of rows, a branchless token/leaky lattice, and one
+scatter of rows back.
+
+Every packed entry point (decide_packed, decide_packed_compact,
+decide_packed_lean and their decide_scan_* forms) takes tensors on either
+device:
+
+- on the CPU it runs the plain PyTorch version, decide() below;
+- on CUDA it launches the hand-written kernel csrc/decide.cu, or raises.
+  It never falls back to the plain version there.
+
+Unlike the JAX functions, which return a new table, these update `state` IN
+PLACE and return only the response rows.
+
+The numpy host packers (pack_window, compact_window, lean_window,
+widen_compact_out, ...) are copies of the JAX package's, so both packages
+stage a window identically.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gubernator_tpu_torch.types import Algorithm, Behavior, Status
+from gubernator_tpu_torch.utils.platform import resolve_device
+
+I32 = torch.int32
+I64 = torch.int64
+
+# State-column algorithm codes: table slots hold -1 when vacant.
+_VACANT = -1
+
+# Row field indices of the i64[..., C, TABLE_ROW_FIELDS] bucket table
+# (the same layout as the JAX package's, decide.py:211-218). `stamp` is the
+# token bucket's CreatedAt and the leaky bucket's UpdatedAt; `status`
+# persists the token bucket's sticky OVER_LIMIT; field 7 counts every hit
+# a key was asked for (admitted or not) and pads the row to 64 bytes.
+ROW_ALGO = 0  # -1 vacant, 0 token, 1 leaky
+ROW_LIMIT = 1
+ROW_REMAINING = 2
+ROW_DURATION = 3  # ms
+ROW_STAMP = 4  # unix ms
+ROW_EXPIRE = 5  # unix ms (doubles as token ResetTime)
+ROW_STATUS = 6
+TABLE_ROW_FIELDS = 8
+
+# Launches of the CUDA kernel, by staging format: each wrapper adds one where
+# it launches, and nowhere else. reset_launch_counts() sets them to 0.
+launch_counts: Dict[str, int] = {"decide_wide": 0, "decide_compact": 0,
+                                 "decide_lean": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+class ReqBatch(NamedTuple):
+    """One batch window of requests, as tensors on one device.
+
+    `slot` is the table row the host key directory assigned; -1 marks padding
+    lanes. `fresh` is True when the directory newly assigned (or recycled)
+    the slot. `greg_expire`/`greg_interval` are host-precomputed calendar
+    values, only read when the DURATION_IS_GREGORIAN bit is set."""
+
+    slot: torch.Tensor  # i32[B]
+    hits: torch.Tensor  # i64[B]
+    limit: torch.Tensor  # i64[B]
+    duration: torch.Tensor  # i64[B]
+    algorithm: torch.Tensor  # i32[B]
+    behavior: torch.Tensor  # i32[B]
+    greg_expire: torch.Tensor  # i64[B]
+    greg_interval: torch.Tensor  # i64[B]
+    fresh: torch.Tensor  # bool[B]
+
+
+class RespBatch(NamedTuple):
+    status: torch.Tensor  # i32[B]
+    limit: torch.Tensor  # i64[B]
+    remaining: torch.Tensor  # i64[B]
+    reset_time: torch.Tensor  # i64[B]
+
+
+def make_table(capacity: int, device=None) -> torch.Tensor:
+    """Fresh vacant table: i64[capacity, 8] rows with algo = -1, on the card
+    unless `device` says otherwise."""
+    state = torch.zeros((capacity, TABLE_ROW_FIELDS), dtype=I64,
+                        device=resolve_device(device))
+    state[:, ROW_ALGO] = _VACANT
+    return state
+
+
+def _sel(default: torch.Tensor, *pairs) -> torch.Tensor:
+    """Chained masked select; later pairs win over earlier ones."""
+    out = default
+    for mask, val in pairs:
+        out = torch.where(mask, val, out)
+    return out
+
+
+def decide(state: torch.Tensor, reqs: ReqBatch, now_ms) -> RespBatch:
+    """Apply one collision-free batch of requests to the table: the plain
+    PyTorch version of the JAX package's decide() (decide.py:277), and of
+    the kernel in csrc/decide.cu.
+
+    Updates `state` IN PLACE and returns the per-request responses. All
+    requests must target distinct slots (the engine guarantees that through
+    rounds); padding lanes carry slot == -1. A slot >= capacity reads the
+    last row, as XLA's gather clamps, and its store is dropped."""
+    now = int(now_ms)
+    C = state.shape[-2]
+    slot = reqs.slot.to(I64)
+    active = slot >= 0
+    gslot = slot.clamp(0, C - 1)
+
+    rows = state.index_select(0, gslot)  # i64[B, 8]
+    st_algo = rows[:, ROW_ALGO]
+    st_limit = rows[:, ROW_LIMIT]
+    st_rem = rows[:, ROW_REMAINING]
+    st_dur = rows[:, ROW_DURATION]
+    st_stamp = rows[:, ROW_STAMP]
+    st_exp = rows[:, ROW_EXPIRE]
+    st_status = rows[:, ROW_STATUS]
+
+    r_hits = reqs.hits
+    r_limit = reqs.limit
+    r_dur = reqs.duration
+    r_algo = reqs.algorithm.to(I64)
+    is_tok = r_algo == int(Algorithm.TOKEN_BUCKET)
+    greg = (reqs.behavior & int(Behavior.DURATION_IS_GREGORIAN)) != 0
+    reset_rem = (reqs.behavior & int(Behavior.RESET_REMAINING)) != 0
+    peek = r_hits == 0
+
+    OVER = int(Status.OVER_LIMIT)
+    UNDER = int(Status.UNDER_LIMIT)
+
+    # A slot is a hit only if occupied, unexpired and running the same
+    # algorithm (cache.go:140-165, algorithms.go:54-62,195-203).
+    occupied = active & ~reqs.fresh & (st_algo >= 0)
+    alive = occupied & (st_exp >= now) & (st_algo == r_algo)
+
+    # ---------------- token bucket, existing row (algorithms.go:35-134) ----
+    tok_reset = alive & is_tok & reset_rem
+    lim_changed = st_limit != r_limit
+    t_rem0 = torch.where(lim_changed, torch.minimum(st_rem, r_limit), st_rem)
+    dur_changed = st_dur != r_dur
+    t_new_exp = torch.where(greg, reqs.greg_expire, st_stamp + r_dur)
+    tok_recreate = alive & is_tok & ~reset_rem & dur_changed & (t_new_exp < now)
+    tok_exists = alive & is_tok & ~reset_rem & ~tok_recreate
+    te_exp = torch.where(dur_changed, t_new_exp, st_exp)
+    t_rem_zero = t_rem0 == 0
+    t_over_req = r_hits > t_rem0
+    t_deduct = ~peek & ~t_rem_zero & ~t_over_req
+    te_rem = torch.where(t_deduct, t_rem0 - r_hits, t_rem0)
+    te_status_resp = torch.where(~peek & (t_rem_zero | t_over_req), OVER, st_status)
+    te_status_store = torch.where(~peek & t_rem_zero, OVER, st_status)
+
+    # ---------------- token bucket, vacant/recreate (algorithms.go:136-178) -
+    tok_miss = active & is_tok & (~alive | tok_recreate)
+    m_exp = torch.where(greg, reqs.greg_expire, now + r_dur)
+    m_over = r_hits > r_limit
+    m_rem = torch.where(m_over, r_limit, r_limit - r_hits)
+
+    # ---------------- leaky bucket, existing row (algorithms.go:194-289) ----
+    leak_exists = alive & ~is_tok
+    l_rem0 = torch.where(reset_rem, r_limit, st_rem)
+    l_dur = torch.where(greg, reqs.greg_expire - now, r_dur)
+    l_rate = (torch.where(greg, reqs.greg_interval, r_dur)
+              // r_limit.clamp(min=1)).clamp(min=1)
+    elapsed = (now - st_stamp).clamp(min=0)
+    l_rem1 = torch.minimum(r_limit, l_rem0 + elapsed // l_rate)
+    l_rem_zero = l_rem1 == 0
+    l_over_req = r_hits > l_rem1
+    l_deduct = ~peek & ~l_rem_zero & ~l_over_req
+    le_rem = torch.where(l_deduct, l_rem1 - r_hits, l_rem1)
+    le_stamp = torch.where(~l_rem_zero & ~peek, now, st_stamp)
+    le_status = torch.where(l_rem_zero | (~peek & l_over_req), OVER, UNDER)
+    le_exp = torch.where(l_deduct, now + l_dur, st_exp)
+
+    # ---------------- leaky bucket, vacant (algorithms.go:291-336) ----------
+    leak_miss = active & ~is_tok & ~alive
+    lm_dur = torch.where(greg, reqs.greg_expire - now, r_dur)
+    lm_rate = (lm_dur // r_limit.clamp(min=1)).clamp(min=1)
+    lm_over = r_hits > r_limit
+    lm_rem = torch.where(lm_over, 0, r_limit - r_hits)
+
+    # ---------------- select new state ------------------------------------
+    n_algo = _sel(
+        st_algo,
+        (tok_exists | tok_miss, int(Algorithm.TOKEN_BUCKET)),
+        (leak_exists | leak_miss, int(Algorithm.LEAKY_BUCKET)),
+        (tok_reset, _VACANT),
+    )
+    touched = tok_exists | tok_miss | leak_exists | leak_miss
+    n_limit = torch.where(touched, r_limit, st_limit)
+    n_rem = _sel(st_rem, (tok_exists, te_rem), (tok_miss, m_rem),
+                 (leak_exists, le_rem), (leak_miss, lm_rem))
+    n_dur = _sel(st_dur, (tok_exists | tok_miss, r_dur),
+                 (leak_exists, l_dur), (leak_miss, lm_dur))
+    n_stamp = _sel(st_stamp, (tok_miss | leak_miss, now),
+                   (leak_exists, le_stamp))
+    n_exp = _sel(st_exp, (tok_exists, te_exp), (tok_miss, m_exp),
+                 (leak_exists, le_exp), (leak_miss, now + lm_dur))
+    n_status = _sel(st_status, (tok_exists, te_status_store),
+                    (tok_miss | leak_miss, UNDER))
+    new_rows = torch.stack(
+        [n_algo, n_limit, n_rem, n_dur, n_stamp, n_exp, n_status,
+         rows[:, 7] + torch.where(active, r_hits, 0)],
+        dim=1,
+    )
+    # ONE row scatter back; padding and out-of-range lanes are dropped
+    keep = active & (slot < C)
+    state.index_copy_(0, slot[keep], new_rows[keep])
+
+    # ---------------- select response --------------------------------------
+    z64 = torch.zeros_like(r_limit)
+    status = _sel(
+        torch.zeros_like(st_status),
+        (tok_exists, te_status_resp),
+        (tok_miss, torch.where(m_over, OVER, UNDER)),
+        (leak_exists, le_status),
+        (leak_miss, torch.where(lm_over, OVER, UNDER)),
+        (tok_reset, UNDER),
+    ).to(I32)
+    return RespBatch(
+        status=status,
+        limit=torch.where(active, r_limit, z64),
+        remaining=_sel(z64, (tok_exists, te_rem), (tok_miss, m_rem),
+                       (leak_exists, le_rem), (leak_miss, lm_rem),
+                       (tok_reset, r_limit)),
+        reset_time=_sel(z64, (tok_exists, te_exp), (tok_miss, m_exp),
+                        (leak_exists, now + l_rate),
+                        (leak_miss, now + lm_rate), (tok_reset, z64)),
+    )
+
+
+# ------------------------------------------------------------ staging formats
+# Wide: i64[9, B] up, i64[4, B] back (decide.py:464). Compact: i32[5, B] up
+# (slot, hits, limit, duration, meta), i32[4, B] back with reset as a delta
+# from now (decide.py:518-586). Lean: one i32 lane word per request plus an
+# i64[128, 4] config table of (limit, duration, algorithm, behavior), hits = 1
+# implied, compact response (decide.py:797-883).
+
+WIDE, COMPACT, LEAN = 0, 1, 2
+_FORMAT_NAMES = {WIDE: "decide_wide", COMPACT: "decide_compact",
+                 LEAN: "decide_lean"}
+
+COMPACT_ROWS = 5
+_META_BEHAVIOR_SHIFT = 1
+_META_BEHAVIOR_MASK = 0x3F
+_META_FRESH = 1 << 7
+_I32_MAX = (1 << 31) - 1
+
+LEAN_MAX_CFG = 128
+_LEAN_SLOT_MASK = (1 << 24) - 1
+_LEAN_PAD = _LEAN_SLOT_MASK  # slot sentinel: capacity must stay below it
+_LEAN_FRESH_SHIFT = 24
+_LEAN_CFG_SHIFT = 25
+
+
+def _reqs_wide(packed: torch.Tensor, cfg=None) -> ReqBatch:
+    return ReqBatch(
+        slot=packed[0].to(I32),
+        hits=packed[1],
+        limit=packed[2],
+        duration=packed[3],
+        algorithm=packed[4].to(I32),
+        behavior=packed[5].to(I32),
+        greg_expire=packed[6],
+        greg_interval=packed[7],
+        fresh=packed[8] != 0,
+    )
+
+
+def _reqs_compact(packed: torch.Tensor, cfg=None) -> ReqBatch:
+    meta = packed[4]
+    zero64 = torch.zeros(packed.shape[-1], dtype=I64, device=packed.device)
+    return ReqBatch(
+        slot=packed[0],
+        hits=packed[1].to(I64),
+        limit=packed[2].to(I64),
+        duration=packed[3].to(I64),
+        algorithm=meta & 1,
+        behavior=(meta >> _META_BEHAVIOR_SHIFT) & _META_BEHAVIOR_MASK,
+        greg_expire=zero64,
+        greg_interval=zero64,
+        fresh=(meta & _META_FRESH) != 0,
+    )
+
+
+def _reqs_lean(lane: torch.Tensor, cfg: torch.Tensor) -> ReqBatch:
+    slot24 = lane & _LEAN_SLOT_MASK
+    # bits 25-31 include the sign bit: shift, then mask
+    cfgid = ((lane >> _LEAN_CFG_SHIFT) & (LEAN_MAX_CFG - 1)).to(I64)
+    rows = cfg.index_select(0, cfgid)
+    zero64 = torch.zeros(lane.shape[-1], dtype=I64, device=lane.device)
+    return ReqBatch(
+        slot=torch.where(slot24 == _LEAN_PAD, -1, slot24),
+        hits=torch.ones(lane.shape[-1], dtype=I64, device=lane.device),
+        limit=rows[:, 0],
+        duration=rows[:, 1],
+        algorithm=rows[:, 2].to(I32),
+        behavior=rows[:, 3].to(I32),
+        greg_expire=zero64,
+        greg_interval=zero64,
+        fresh=((lane >> _LEAN_FRESH_SHIFT) & 1) != 0,
+    )
+
+
+_DECODERS = {WIDE: _reqs_wide, COMPACT: _reqs_compact, LEAN: _reqs_lean}
+
+
+def _wide_response(resp: RespBatch, now_ms) -> torch.Tensor:
+    return torch.stack([resp.status.to(I64), resp.limit, resp.remaining,
+                        resp.reset_time])
+
+
+def _compact_response(resp: RespBatch, now_ms) -> torch.Tensor:
+    """The compact i32[4, B] wire rows: status, limit, remaining, reset as a
+    delta from now (an absolute-zero reset encodes as -1)."""
+    now = int(now_ms)
+    delta = torch.where(resp.reset_time == 0, -1, resp.reset_time - now)
+    return torch.stack([resp.status, resp.limit.to(I32),
+                        resp.remaining.to(I32), delta.to(I32)])
+
+
+def decide_plain(fmt: int, state: torch.Tensor, packed: torch.Tensor,
+                 cfg: Optional[torch.Tensor], now_ms,
+                 scan: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of every packed entry point, on any device:
+    one window (`scan` False) or K windows applied in order, window k+1
+    observing window k's writes. Updates `state` in place; returns the
+    response rows (i64[.., 4, B] wide, i32[.., 4, B] otherwise)."""
+    decode = _DECODERS[fmt]
+    respond = _wide_response if fmt == WIDE else _compact_response
+
+    def window(pk):
+        return respond(decide(state, decode(pk, cfg), now_ms), now_ms)
+
+    if not scan:
+        return window(packed)
+    return torch.stack([window(pk) for pk in packed.unbind(0)])
+
+
+# ------------------------------------------------------------- CUDA kernel
+
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        from gubernator_tpu_torch.ops import _build
+
+        lib = _build.load("decide")
+        lib.decide_launch.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.decide_launch.restype = ctypes.c_int
+        _lib_handle = lib
+    return _lib_handle
+
+
+_PACKED_DTYPE = {WIDE: I64, COMPACT: I32, LEAN: I32}
+_PACKED_ROWS = {WIDE: (9,), COMPACT: (COMPACT_ROWS,), LEAN: ()}
+
+
+def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, the table on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
+                cfg: Optional[torch.Tensor], now_ms,
+                scan: bool = False) -> torch.Tensor:
+    """Launch csrc/decide.cu on `state`'s card (same contract as
+    decide_plain). Raises on a tensor it does not take or a refused
+    launch."""
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"decide_cuda needs CUDA tensors, got {dev}")
+    if state.dim() != 2 or state.shape[1] != TABLE_ROW_FIELDS:
+        raise ValueError(f"table must be i64[C, {TABLE_ROW_FIELDS}], got "
+                         f"{tuple(state.shape)}")
+    _check(state, "table", I64, state.shape, dev)
+    if state.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    lead = packed.shape[:1] if scan else ()
+    B = packed.shape[-1]
+    _check(packed, "staging", _PACKED_DTYPE[fmt],
+           lead + _PACKED_ROWS[fmt] + (B,), dev)
+    if fmt == LEAN:
+        _check(cfg, "config table", I64, (LEAN_MAX_CFG, 4), dev)
+    K = packed.shape[0] if scan else 1
+    out_dtype = I64 if fmt == WIDE else I32
+    out = torch.empty(lead + (4, B), dtype=out_dtype, device=dev)
+    if K == 0 or B == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().decide_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        fmt, state.data_ptr(), state.shape[0], packed.data_ptr(),
+        cfg.data_ptr() if fmt == LEAN else None, out.data_ptr(),
+        K, B, int(now_ms), int(scan), stream)
+    if err != 0:
+        raise RuntimeError(f"decide kernel launch failed: CUDA error {err}")
+    launch_counts[_FORMAT_NAMES[fmt]] += 1
+    return out
+
+
+def _decide(fmt, state, packed, cfg, now_ms, scan):
+    """The CPU takes the plain version; CUDA takes the kernel, or raises."""
+    if state.device.type == "cpu":
+        return decide_plain(fmt, state, packed, cfg, now_ms, scan)
+    return decide_cuda(fmt, state, packed, cfg, now_ms, scan)
+
+
+def decide_packed(state: torch.Tensor, packed: torch.Tensor, now_ms) -> torch.Tensor:
+    """decide() over one wide i64[9, B] staging buffer -> i64[4, B]
+    (decide.py:464 of the JAX package). Updates `state` in place."""
+    return _decide(WIDE, state, packed, None, now_ms, False)
+
+
+def decide_scan_packed(state: torch.Tensor, packed_k: torch.Tensor, now_ms) -> torch.Tensor:
+    """K wide windows i64[K, 9, B] in order, window k+1 observing window k's
+    writes -> i64[K, 4, B] (decide.py:495). Updates `state` in place."""
+    return _decide(WIDE, state, packed_k, None, now_ms, True)
+
+
+def decide_packed_compact(state: torch.Tensor, packed: torch.Tensor, now_ms) -> torch.Tensor:
+    """decide() over one compact i32[5, B] staging buffer -> i32[4, B]
+    (decide.py:536). Updates `state` in place."""
+    return _decide(COMPACT, state, packed, None, now_ms, False)
+
+
+def decide_scan_packed_compact(state: torch.Tensor, packed_k: torch.Tensor, now_ms) -> torch.Tensor:
+    """K compact windows i32[K, 5, B] in order -> i32[K, 4, B]
+    (decide.py:575). Updates `state` in place."""
+    return _decide(COMPACT, state, packed_k, None, now_ms, True)
+
+
+def decide_packed_lean(state: torch.Tensor, packed: torch.Tensor,
+                       cfg: torch.Tensor, now_ms) -> torch.Tensor:
+    """decide() over one lean i32[B] lane word per request + i64[128, 4]
+    config table -> i32[4, B] (decide.py:844). Updates `state` in place."""
+    return _decide(LEAN, state, packed, cfg, now_ms, False)
+
+
+def decide_scan_packed_lean(state: torch.Tensor, packed_k: torch.Tensor,
+                            cfg: torch.Tensor, now_ms) -> torch.Tensor:
+    """K lean windows i32[K, B] + one shared config table, in order
+    -> i32[K, 4, B] (decide.py:872). Updates `state` in place."""
+    return _decide(LEAN, state, packed_k, cfg, now_ms, True)
+
+
+# ------------------------------------------------------------ host packers
+# Copies of the JAX package's numpy packers (decide.py:588-618, 821-982).
+
+
+def compact_window(packed):
+    """Wide i64[9, W] (or [K, 9, W]) staging -> compact i32, or None when
+    any lane is ineligible (gregorian, or a value outside [0, 2^31))."""
+    vals = packed[..., 1:4, :]
+    if (vals < 0).any() or (vals > _I32_MAX).any():
+        return None
+    if (packed[..., 5, :] & int(Behavior.DURATION_IS_GREGORIAN)).any():
+        return None
+    out = np.empty(packed.shape[:-2] + (COMPACT_ROWS, packed.shape[-1]),
+                   np.int32)
+    out[..., 0, :] = packed[..., 0, :]
+    out[..., 1:4, :] = vals
+    out[..., 4, :] = (
+        (packed[..., 4, :] & 1)
+        | ((packed[..., 5, :] & _META_BEHAVIOR_MASK) << _META_BEHAVIOR_SHIFT)
+        | ((packed[..., 8, :] != 0) << 7)
+    )
+    return out
+
+
+def widen_compact_out(out, now_ms: int):
+    """Compact i32[..., 4, B] responses -> the wide i64 rows decide_packed
+    returns (reset_delta -1 decodes to absolute 0)."""
+    wide = np.asarray(out).astype(np.int64)
+    delta = wide[..., 3, :]
+    wide[..., 3, :] = np.where(delta < 0, 0, now_ms + delta)
+    return wide
+
+
+def staging_policy() -> str:
+    """GUBER_STAGING resolution: 'auto' ships each window on the leanest
+    eligible wire format, 'wide' pins the i64[9] format."""
+    s = os.environ.get("GUBER_STAGING", "auto")
+    if s not in ("auto", "wide"):
+        raise ValueError(
+            f"GUBER_STAGING={s!r}: must be 'auto' or 'wide'"
+            " (lean/compact cannot be pinned — ineligible windows need"
+            " the wide format)")
+    return s
+
+
+def lean_capacity_ok(capacity: int) -> bool:
+    """Slots must fit the 24-bit lane field with 0xFFFFFF reserved for
+    padding — a deployment-time property, checked once per engine."""
+    return capacity <= _LEAN_SLOT_MASK
+
+
+def lean_window(packed, capacity: int):
+    """Wide i64[9, W] (or [K, 9, W]) staging -> (lean i32[W] / [K, W] lane
+    words, i64[LEAN_MAX_CFG, 4] config table), or None when any non-padding
+    lane is ineligible: hits != 1, gregorian, limit/duration outside
+    [0, 2^31), behavior past 6 bits, algorithm past 1 bit, slot too wide
+    for 24 bits, or > LEAN_MAX_CFG distinct (limit, duration, algorithm,
+    behavior) tuples. Padding lanes emit the 0xFFFFFF sentinel and occupy
+    no config row."""
+    if not lean_capacity_ok(capacity):
+        return None
+    slot = packed[..., 0, :]
+    live = slot >= 0
+    if (slot >= _LEAN_PAD).any():
+        return None
+    hits = packed[..., 1, :]
+    limit = packed[..., 2, :]
+    dur = packed[..., 3, :]
+    algo = packed[..., 4, :]
+    beh = packed[..., 5, :]
+    bad = (
+        (hits != 1)
+        | (limit < 0) | (limit > _I32_MAX)
+        | (dur < 0) | (dur > _I32_MAX)
+        | ((algo & ~1) != 0)
+        | ((beh & ~_META_BEHAVIOR_MASK) != 0)
+        | ((beh & int(Behavior.DURATION_IS_GREGORIAN)) != 0)
+    )
+    if bool((bad & live).any()):
+        return None
+    # intern the (limit, duration, algorithm, behavior) tuples via two 1-D
+    # uniques over injective packed keys
+    pair = (limit[live] << 31) | dur[live]  # both < 2^31: injective
+    meta7 = algo[live] | (beh[live] << 1)  # 7 bits
+    u1, inv1 = np.unique(pair, return_inverse=True)
+    u2, inv = np.unique(inv1.astype(np.int64) * 128 + meta7,
+                        return_inverse=True)
+    if u2.size > LEAN_MAX_CFG:
+        return None
+    cfg = np.zeros((LEAN_MAX_CFG, 4), np.int64)
+    pairs = u1[u2 >> 7]
+    cfg[: u2.size, 0] = pairs >> 31
+    cfg[: u2.size, 1] = pairs & _I32_MAX
+    cfg[: u2.size, 2] = u2 & 1
+    cfg[: u2.size, 3] = (u2 & 127) >> 1
+    lanes = np.full(slot.shape, _LEAN_PAD, np.int64)
+    lanes[live] = (
+        slot[live]
+        | ((packed[..., 8, :][live] != 0).astype(np.int64)
+           << _LEAN_FRESH_SHIFT)
+        | (inv.reshape(-1).astype(np.int64) << _LEAN_CFG_SHIFT)
+    )
+    # bit 31 of the cfgid field lands in the i32 sign bit — wrap the bit
+    # pattern through uint32 (every reader masks, so negatives are fine)
+    return lanes.astype(np.uint32).view(np.int32), cfg
+
+
+def pack_window(items, slots, fresh, width: int, out=None):
+    """Host-side packer for decide_packed: i64[9, width] from one window.
+
+    `items` are prep WorkItems (resp_index, req, greg_expire, greg_interval);
+    lanes beyond len(items) are padding (slot = -1). `out`, when given, must
+    be a zero-filled i64[9, width] view and is filled in place."""
+    n = len(items)
+    packed = np.zeros((9, width), np.int64) if out is None else out
+    packed[0, :n] = slots
+    packed[0, n:] = -1
+    if n:
+        packed[1:8, :n] = np.array(
+            [
+                (r.hits, r.limit, r.duration, int(r.algorithm),
+                 int(r.behavior), ge, gi)
+                for _i, r, ge, gi in items
+            ],
+            np.int64,
+        ).T
+    packed[8, :n] = fresh
+    return packed

@@ -7,8 +7,11 @@ setup(
     name="gubernator-tpu",
     version="0.1.0",
     description="TPU-native distributed rate-limiting framework",
-    packages=find_packages(include=["gubernator_tpu", "gubernator_tpu.*"]),
-    package_data={"gubernator_tpu.native": ["*.cpp"]},
+    packages=find_packages(include=["gubernator_tpu", "gubernator_tpu.*",
+                                    "gubernator_tpu_torch",
+                                    "gubernator_tpu_torch.*"]),
+    package_data={"gubernator_tpu.native": ["*.cpp"],
+                  "gubernator_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
