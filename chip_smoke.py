@@ -5,26 +5,42 @@
 
 Run from the root of the repository. Phases, each fatal on failure:
 
-1. print the card (nvidia-smi name and power limit) and build the CUDA
-   kernels from csrc/ with nvcc (both sources compile in parallel);
+1. print the card (nvidia-smi name and power limit) and build every native
+   source, all compilers started together: the CUDA kernels from csrc/
+   with nvcc and the key directory native/keydir.cpp with g++; each
+   source's build time is printed;
 2. hold the decide kernel to its plain PyTorch version on the card, on a
    10,000,001-row table populated from --seed: the wide, compact and lean
    formats at W in {64, 1024, 8192} and the scan at K in {2, 32}, W = 64.
    Responses and whole tables must be bit-equal; each shape is timed
    against its plain version and its memory bound;
-3. the main path: Engine(device="cuda", capacity=10_000_001) after
-   warmup() takes --windows client batches of 8192 requests over 1,000,000
-   Zipf(1.1) keys, and Engine(device="cpu") takes the same stream; the
-   responses and the tables must be equal;
+3. the main path: Engine(device="cuda", capacity=10_000_001) on the native
+   directory after warmup() takes --windows client batches of 8192
+   requests over 1,000,000 Zipf(1.1) keys through the one-pass fast
+   window; after each window the 16 hottest keys go through seed_mirror
+   (the gather kernel) and three decide_native_single calls each (a miss
+   becomes a one-request window), so the next window's lookups inject the
+   dirty mirrors (the inject kernel). Engine(device="cpu") takes the same
+   sequence; responses, lone responses, tables and EngineStats counters
+   must be equal. Prints decisions/s and the stage split;
+3b. the same engines on the python directory (GUBER_NO_NATIVE=1), 20
+   windows, no lone requests;
 4. the GLOBAL sync: the ring kernel against its plain version at
    L in {G, 4G}, then sync steps over S = 8 shards of 1,250,000 rows with
    G = 1024 global keys, collectives="ring" on the card against "psum" on
-   the CPU; mirrors and shard tables must be equal.
+   the CPU; mirrors and shard tables must be equal;
+5. the row kernels against their plain versions on the card: inject at
+   m in {1, 16, 64, 4096} and gather at m in {1, 64, 8192} on a populated
+   10,000,001-row table (dropped, clamped and int32-overflowing lanes), and
+   row_bump on an int32[10,000,000, 128] table (5.12 GB) against the plain
+   version on a clone; then the probe's own loop
+   (gubernator_tpu_torch.bench_rows).
 
-Kernel launch counts are set to 0 just before each main path (phases 3
-and 4) and read just after; every kernel must have launched. The last
-two lines are the {"kernels": [...]} record and the contract line
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+Kernel launch counts are set to 0 just before each main path (phases 3,
+3b, 4 and the bench_rows loop) and read just after; every kernel must have
+launched, inject and gather on phase 3. The last two lines are the
+{"kernels": [...]} record and the contract line {"ok": true, "device":
+{...}}. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -40,8 +56,9 @@ import time
 import numpy as np
 import torch
 
+from gubernator_tpu_torch import bench_rows
 from gubernator_tpu_torch.models.engine import Engine
-from gubernator_tpu_torch.ops import _build, decide as dk, ring as rk
+from gubernator_tpu_torch.ops import _build, decide as dk, ring as rk, rows as rowk
 from gubernator_tpu_torch.parallel import MeshPlan, make_global_sync, make_sharded_table, shard_of_key
 from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, _psum
 from gubernator_tpu_torch.types import Behavior, RateLimitReq
@@ -51,6 +68,10 @@ NOW = 1_700_000_000_000
 CAPACITY = 10_000_001  # the north star's 10M keys; fits the 24-bit lean slot
 WINDOW = 8192  # requests per client batch, the engine's max_width
 N_KEYS = 1_000_000  # distinct keys of the main-path stream
+LONE_KEYS = 16  # hottest keys of each window sent as lone requests
+PYTHON_DIR_WINDOWS = 20  # phase 3b
+INJECT_M = (1, 16, 64, 4096)  # phase 3 injects at most LONE_KEYS rows
+GATHER_M = (1, 64, 8192)  # phase 3 gathers 1 slot per seed_mirror
 GLOBAL_SHARDS, GLOBAL_ROWS, GLOBAL_KEYS = 8, 1_250_000, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Peak scalar rate used for integer work: the card's 67 TFLOP/s of float32
@@ -66,11 +87,21 @@ RESP_BYTES = {"wide": 32, "compact": 16, "lean": 16}
 REPLACES = {"decide_wide": "gubernator_tpu/ops/decide.py:464",
             "decide_compact": "gubernator_tpu/ops/decide.py:536",
             "decide_lean": "gubernator_tpu/ops/decide.py:844",
-            "ring_all_reduce": "gubernator_tpu/ops/ring.py:39"}
+            "ring_all_reduce": "gubernator_tpu/ops/ring.py:39",
+            "inject_rows": "gubernator_tpu/models/engine.py:74",
+            "gather_rows": "gubernator_tpu/models/engine.py:86",
+            "row_bump": "scripts/bench_pallas_rows.py:36"}
 SOURCES = {"decide_wide": "gubernator_tpu_torch/csrc/decide.cu",
            "decide_compact": "gubernator_tpu_torch/csrc/decide.cu",
            "decide_lean": "gubernator_tpu_torch/csrc/decide.cu",
-           "ring_all_reduce": "gubernator_tpu_torch/csrc/ring.cu"}
+           "ring_all_reduce": "gubernator_tpu_torch/csrc/ring.cu",
+           "inject_rows": "gubernator_tpu_torch/csrc/rows.cu",
+           "gather_rows": "gubernator_tpu_torch/csrc/rows.cu",
+           "row_bump": "gubernator_tpu_torch/csrc/rows.cu"}
+# the shape the inject and gather entries of the kernels line are timed at:
+# the main path's own (phase 3 injects up to LONE_KEYS rows, gathers 1 slot);
+# row_bump's is the probe's BATCH
+ROW_MAIN_M = {"inject_rows": LONE_KEYS, "gather_rows": 1}
 
 
 def log(*a):
@@ -318,7 +349,8 @@ def request_stream(seed, n_windows):
     from three kinds of client, in turn: of every ten batches six send
     hits = 1 only (the lean format), three send hits of 2-5 on a tenth of
     their requests (compact), and one also puts a tenth on a gregorian
-    calendar (wide) — about 1% of all requests."""
+    calendar (wide) — about 1% of all requests. Returns the batches and
+    each key's (algorithm, limit, duration)."""
     width, n_keys = WINDOW, N_KEYS
     rng = np.random.default_rng(seed + 1)
     p = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64) ** 1.1
@@ -341,37 +373,34 @@ def request_stream(seed, n_windows):
                 limit=int(key_limit[k]),
                 duration=int(codes[j]) if greg[j] else int(key_dur[k]),
                 algorithm=int(key_algo[k]), behavior=GREG if greg[j] else 0))
-        batches.append(batch)
-    return batches
+        batches.append((keys, batch))
+    return batches, (key_algo, key_limit, key_dur)
 
 
-def phase_engine(seed, n_windows, dev, results):
-    log(f"== phase 3: main path, Engine(capacity={CAPACITY}) on {dev} vs cpu, "
-        f"{n_windows} windows of {WINDOW} requests")
-    t = time.perf_counter()
-    batches = request_stream(seed, n_windows)
-    log(f"  stream built in {time.perf_counter() - t:.1f} s")
-    gpu = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
-    cpu = Engine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
-    t = time.perf_counter()
-    gpu.warmup()
-    log(f"  warmup {time.perf_counter() - t:.2f} s")
-    # host clock around the engine's device round trips: staging upload +
-    # launch (dispatch) and wait + readback (fetch)
-    spent = {"dispatch": 0.0, "fetch": 0.0}
-    for hook, name in (("_dispatch_staged", "dispatch"),
-                       ("_dispatch_scan_staged", "dispatch"), ("_fetch_staged", "fetch")):
-        def timed(*a, _fn=getattr(gpu, hook), _name=name):
-            t0 = time.perf_counter()
-            out = _fn(*a)
-            spent[_name] += time.perf_counter() - t0
-            return out
+def lone_requests(keys, key_cfg):
+    """One hits = 1 request for each of the LONE_KEYS hottest keys of a
+    window, on the key's own configuration."""
+    algo, limit, dur = key_cfg
+    uniq, counts = np.unique(keys, return_counts=True)
+    hot = uniq[np.argsort(-counts, kind="stable")[:LONE_KEYS]]
+    return [RateLimitReq(name="api", unique_key=f"k{k}", hits=1, limit=int(limit[k]),
+                         duration=int(dur[k]), algorithm=int(algo[k]))
+            for k in hot.tolist()]
 
-        setattr(gpu, hook, timed)
-    dk.reset_launch_counts()
-    gpu_s = cpu_s = busy_us = traced_s = 0.0
-    n_req = 0
-    for i, batch in enumerate(batches):
+
+def resp_tuples(rs):
+    return [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in rs]
+
+
+def drive_engines(gpu, cpu, batches, key_cfg, lone, spent):
+    """Run every window through the card engine and its CPU twin, then (when
+    `lone`) the window's hottest keys through seed_mirror and three
+    decide_native_single calls each, a miss going through get_rate_limits
+    as a one-request window. Everything must be equal. Returns the
+    measurements of the card engine."""
+    m = dict(gpu_s=0.0, cpu_s=0.0, busy_us=0.0, traced_s=0.0, n_req=0, lone_s=0.0,
+             lone_calls=0, lone_native=0, lone_miss=0, seeded=0, seed_s=0.0)
+    for i, (keys, batch) in enumerate(batches):
         now = NOW + i * 50
         trace = i < 2  # the first two windows also run under the profiler
         if trace:
@@ -385,33 +414,164 @@ def phase_engine(seed, n_windows, dev, results):
         if trace:
             torch.cuda.synchronize()
             prof.__exit__(None, None, None)
-            busy_us += sum(e.self_device_time_total for e in prof.key_averages())
-            traced_s += elapsed
+            m["busy_us"] += sum(e.self_device_time_total for e in prof.key_averages())
+            m["traced_s"] += elapsed
         else:
-            gpu_s += elapsed
-            n_req += len(batch)
+            m["gpu_s"] += elapsed
+            m["n_req"] += len(batch)
         t = time.perf_counter()
         want = cpu.get_rate_limits(batch, now_ms=now)
-        cpu_s += time.perf_counter() - t
-        check([(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in got]
-              == [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in want],
+        m["cpu_s"] += time.perf_counter() - t
+        check(resp_tuples(got) == resp_tuples(want),
               f"window {i}: card and CPU engines answer differently")
-    launches = dict(dk.launch_counts)
+        if not lone:
+            continue
+        for req in lone_requests(keys, key_cfg):
+            key = req.hash_key()
+            t = time.perf_counter()
+            seeded = gpu.seed_mirror(key)
+            m["seed_s"] += time.perf_counter() - t
+            check(seeded == cpu.seed_mirror(key), f"window {i}: seed_mirror({key}) differs")
+            m["seeded"] += seeded
+            for j in range(3):
+                t_ms = now + 1 + j
+                t = time.perf_counter()
+                g = gpu.decide_native_single(req, now_ms=t_ms)
+                if g is None:
+                    g = gpu.get_rate_limits([req], now_ms=t_ms)[0]
+                    m["lone_miss"] += 1
+                else:
+                    m["lone_native"] += 1
+                m["lone_s"] += time.perf_counter() - t
+                m["lone_calls"] += 1
+                w = cpu.decide_native_single(req, now_ms=t_ms)
+                if w is None:
+                    w = cpu.get_rate_limits([req], now_ms=t_ms)[0]
+                check(resp_tuples([g]) == resp_tuples([w]),
+                      f"window {i}: lone request for {key} answered differently")
     check(torch.equal(gpu.state.cpu(), cpu.state), "engine tables differ")
-    total = WINDOW * len(batches)
-    rate = n_req / gpu_s
-    busy = busy_us / 1e6 / traced_s if traced_s else None
+    gs, cs = gpu.stats.as_dict(), cpu.stats.as_dict()
+    for c in ("requests", "batches", "rounds", "over_limit", "errors", "native_singles"):
+        check(gs[c] == cs[c], f"EngineStats.{c} differs: card {gs[c]}, CPU {cs[c]}")
+    m.update(spent)
+    return m
+
+
+def timed_hooks(gpu):
+    """Host clock around the card engine's device round trips: staging
+    upload + launch (dispatch) and wait + readback (fetch)."""
+    spent = {"dispatch_s": 0.0, "fetch_s": 0.0}
+    for hook, name in (("_dispatch_staged", "dispatch_s"),
+                       ("_dispatch_scan_staged", "dispatch_s"), ("_fetch_staged", "fetch_s")):
+        def timed(*a, _fn=getattr(gpu, hook), _name=name):
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            spent[_name] += time.perf_counter() - t0
+            return out
+
+        setattr(gpu, hook, timed)
+    return spent
+
+
+def phase_engine(seed, n_windows, dev, results):
+    log(f"== phase 3: main path, Engine(capacity={CAPACITY}) on the native directory, "
+        f"{dev} vs cpu, {n_windows} windows of {WINDOW} requests, then the "
+        f"{LONE_KEYS} hottest keys of each window as lone requests")
+    t = time.perf_counter()
+    batches, key_cfg = request_stream(seed, n_windows)
+    log(f"  stream built in {time.perf_counter() - t:.1f} s")
+    os.environ.pop("GUBER_NO_NATIVE", None)
+    t = time.perf_counter()
+    gpu = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    cpu = Engine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    check(gpu._prep_fast is not None and cpu._prep_fast is not None,
+          "the engines did not take the native fast window")
+    gpu.warmup()
+    log(f"  engines built and warmed in {time.perf_counter() - t:.2f} s")
+    # fast windows taken, their wall time, and the share of it in the
+    # leftover tail (the python pipeline after round 0)
+    fast = {"taken": 0, "s": 0.0, "tail_requests": 0, "tail_s": 0.0}
+
+    def counted(*a, _fn=gpu._fast_window):
+        t0 = time.perf_counter()
+        out = _fn(*a)
+        fast["s"] += time.perf_counter() - t0
+        fast["taken"] += out is not None
+        return out
+
+    def tail(requests, now_ms, count_batch=True, _fn=gpu._slow_window):
+        t0 = time.perf_counter()
+        out = _fn(requests, now_ms, count_batch)
+        if not count_batch:
+            fast["tail_s"] += time.perf_counter() - t0
+            fast["tail_requests"] += len(requests)
+        return out
+
+    gpu._fast_window = counted
+    gpu._slow_window = tail
+    spent = timed_hooks(gpu)
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    m = drive_engines(gpu, cpu, batches, key_cfg, True, spent)
+    launches = {**dk.launch_counts, **rowk.launch_counts}
+    check(fast["taken"] > 0, "no window took the fast path")
+    check(launches["inject_rows"] > 0 and launches["gather_rows"] > 0,
+          f"the lone path launched no row kernel: {launches}")
+    stats = gpu.stats.as_dict()
+    stage_s = {s: stats[f"{s}_ns"] / 1e9 for s in gpu.stats.STAGES}
+    rate = m["n_req"] / m["gpu_s"]
+    busy = m["busy_us"] / 1e6 / m["traced_s"] if m["traced_s"] else None
+    total = WINDOW * n_windows
     results["engine"] = dict(
-        requests=total, windows=n_windows, timed_requests=n_req, gpu_s=gpu_s,
-        cpu_s=cpu_s, decisions_per_s=rate, cpu_decisions_per_s=total / cpu_s,
-        device_busy_share=busy, dispatch_s=spent["dispatch"], fetch_s=spent["fetch"],
-        launches_per_window=sum(launches.values()) / n_windows,
+        m, requests=total, windows=n_windows, decisions_per_s=rate,
+        cpu_decisions_per_s=total / m["cpu_s"], device_busy_share=busy,
+        fast_windows=fast["taken"], fast_window_s=fast["s"],
+        tail_requests=fast["tail_requests"], tail_s=fast["tail_s"], stats=stats,
+        stage_s=stage_s,
+        lone_per_s=m["lone_calls"] / m["lone_s"] if m["lone_s"] else None,
+        launches_per_window={k: v / n_windows for k, v in launches.items()},
         keys=gpu.key_count(), launches=launches)
-    log(f"  equal responses and tables; card engine {rate:,.0f} decisions/s "
-        f"({n_req} requests in {gpu_s:.2f} s, the 2 traced windows left out; CPU twin "
-        f"{total / cpu_s:,.0f}/s); device busy {busy} of the traced windows' wall "
-        f"time; dispatch {spent['dispatch']:.2f} s, fetch {spent['fetch']:.2f} s of all "
-        f"windows; {gpu.key_count()} keys; launches {launches}")
+    log(f"  equal responses, lone responses, tables and stats; card engine {rate:,.0f} "
+        f"decisions/s ({m['n_req']} requests in {m['gpu_s']:.2f} s, the 2 traced windows "
+        f"left out; CPU twin {total / m['cpu_s']:,.0f}/s); device busy {busy} of the "
+        f"traced windows' wall time")
+    log(f"  {fast['taken']} fast windows taken in {fast['s']:.2f} s; their leftover "
+        f"tail (duplicate, gregorian, invalid lanes through the python pipeline): "
+        f"{fast['tail_requests']} of {total} requests, {fast['tail_s']:.2f} s")
+    log(f"  stage seconds (card engine, all windows and lone misses): "
+        + ", ".join(f"{s} {v:.3f}" for s, v in stage_s.items())
+        + f"; dispatch {m['dispatch_s']:.3f} s, fetch {m['fetch_s']:.3f} s")
+    log(f"  lone path: {m['lone_calls']} calls in {m['lone_s']:.3f} s ({m['lone_native']} "
+        f"native, {m['lone_miss']} misses as one-request windows), {m['seeded']} mirrors "
+        f"seeded in {m['seed_s']:.3f} s; native_singles {stats['native_singles']}; "
+        f"{gpu.key_count()} keys; launches {launches}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_engine_python(seed, n_windows, dev, results):
+    log(f"== phase 3b: Engine on the python directory (GUBER_NO_NATIVE=1), "
+        f"{dev} vs cpu, {n_windows} windows")
+    batches, key_cfg = request_stream(seed, n_windows)
+    os.environ["GUBER_NO_NATIVE"] = "1"
+    try:
+        gpu = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+        cpu = Engine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    finally:
+        del os.environ["GUBER_NO_NATIVE"]
+    check(gpu._prep_fast is None, "GUBER_NO_NATIVE did not pick the python directory")
+    gpu.warmup()
+    spent = timed_hooks(gpu)
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    m = drive_engines(gpu, cpu, batches, key_cfg, False, spent)
+    launches = {**dk.launch_counts, **rowk.launch_counts}
+    rate = m["n_req"] / m["gpu_s"]
+    results["engine_python"] = dict(m, windows=n_windows, decisions_per_s=rate,
+                                    stats=gpu.stats.as_dict(), launches=launches)
+    log(f"  equal responses, tables and stats; card engine {rate:,.0f} decisions/s; "
+        f"launches {launches}")
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
@@ -499,6 +659,131 @@ def phase_global(seed, dev, results):
     return launches, ring_rec[4 * G]
 
 
+# ----------------------------------------------------------------- phase 5
+
+def inject_stimulus(rng, C, m, device):
+    """i64[m, 8] inject rows over distinct slots; about one lane in eight
+    is dropped (-1, C, C + 5) and algo/status overflow int32 on some."""
+    rows = rng.integers(-(1 << 40), 1 << 40, (m, 8), dtype=np.int64)
+    rows[:, 0] = rng.choice(C, m, replace=False)
+    bad = rng.random(m) < 0.125
+    rows[bad, 0] = rng.choice([-1, C, C + 5], int(bad.sum()))
+    rows[:, 1] = np.where(rng.random(m) < 0.8, rng.integers(0, 2, m), rows[:, 1])
+    rows[:, 7] = np.where(rng.random(m) < 0.8, rng.integers(0, 2, m), rows[:, 7])
+    return torch.from_numpy(rows).to(device)
+
+
+def gather_stimulus(rng, C, m, device):
+    """i32[m] slots, some below 0 or at and past C (they clamp)."""
+    s = rng.integers(0, C, m).astype(np.int32)
+    bad = rng.random(m) < 0.125
+    s[bad] = rng.choice([-1, -9, C, C + 3], int(bad.sum()))
+    return torch.from_numpy(s).to(device)
+
+
+def timed_kernel(run_k, run_p, run_lib, kernel_name, iters=64):
+    call_ms = event_ms(run_k, iters)
+    dev_ms = profiled_kernel_ms(run_k, 32, kernel_name)
+    return dict(ms=dev_ms if dev_ms is not None else call_ms, call_ms=call_ms,
+                plain_ms=event_ms(run_p, 8), library_ms=event_ms(run_lib, iters))
+
+
+def phase_rows(seed, dev, results):
+    log(f"== phase 5: row kernels vs their plain versions on the card, table "
+        f"{CAPACITY} rows; row_bump on int32[{bench_rows.CAP}, 128] "
+        f"({bench_rows.CAP * 512 / 1e9:.2f} GB)")
+    rng = np.random.default_rng(seed + 4)
+    kern = populate_table(CAPACITY, seed + 5, dev)
+    plain = kern.clone()
+    C = CAPACITY
+    recs, errs = [], {"inject_rows": 0, "gather_rows": 0, "row_bump": 0}
+    for m in INJECT_M:
+        stims = [inject_stimulus(rng, C, m, dev) for _ in range(16)]
+        plain.copy_(kern)  # the timing runs below mutate the two tables differently
+        rowk.inject_rows_cuda(kern, stims[0])
+        rowk.inject_rows_plain(plain, stims[0])
+        torch.cuda.synchronize()
+        errs["inject_rows"] = max(errs["inject_rows"], max_abs_err(kern, plain))
+        check(torch.equal(kern, plain), f"inject m={m}: tables differ")
+        # the yardstick: one index_copy_ of the prepared rows at the kept slots
+        lib_in = []
+        for st in stims:
+            keep = (st[:, 0] >= 0) & (st[:, 0] < C)
+            r = torch.cat([st[:, 1:2].to(torch.int32).to(torch.int64), st[:, 2:7],
+                           st[:, 7:8].to(torch.int32).to(torch.int64),
+                           torch.zeros_like(st[:, :1])], 1)
+            lib_in.append((st[keep, 0].contiguous(), r[keep].contiguous()))
+        t = timed_kernel(lambda i: rowk.inject_rows_cuda(kern, stims[i % 16]),
+                         lambda i: rowk.inject_rows_plain(plain, stims[i % 16]),
+                         lambda i: plain.index_copy_(0, *lib_in[i % 16]),
+                         "inject_kernel")
+        b_ms, b_by = bound_ms(m * 128, 0)
+        recs.append(dict(kernel="inject_rows", m=m, bound_ms=b_ms, bound_by=b_by,
+                         bytes=m * 128, **t))
+    plain.copy_(kern)
+    for m in GATHER_M:
+        stims = [gather_stimulus(rng, C, m, dev) for _ in range(16)]
+        got, want = rowk.gather_rows_cuda(kern, stims[0]), rowk.gather_rows_plain(kern, stims[0])
+        torch.cuda.synchronize()
+        errs["gather_rows"] = max(errs["gather_rows"], max_abs_err(got, want))
+        check(torch.equal(got, want), f"gather m={m}: rows differ")
+        lib_idx = [s.to(torch.int64).clamp(0, C - 1) for s in stims]
+        t = timed_kernel(lambda i: rowk.gather_rows_cuda(kern, stims[i % 16]),
+                         lambda i: rowk.gather_rows_plain(kern, stims[i % 16]),
+                         lambda i: torch.index_select(kern, 0, lib_idx[i % 16]),
+                         "gather_kernel")
+        b_ms, b_by = bound_ms(m * (4 + 56 + 56), 0)
+        recs.append(dict(kernel="gather_rows", m=m, bound_ms=b_ms, bound_by=b_by,
+                         bytes=m * 116, **t))
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    N, B = bench_rows.CAP, bench_rows.BATCH
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 6)
+    kern = torch.randint(-(1 << 31), (1 << 31) - 1, (N, 128), generator=g, device=dev,
+                         dtype=torch.int32)
+    srng = np.random.RandomState(5)
+    sets = [torch.from_numpy(srng.choice(N, B, replace=False).astype(np.int32)).to(dev)
+            for _ in range(16)]
+    kern[sets[0][:4].to(torch.int64)] = torch.iinfo(torch.int32).max  # the +1 wraps
+    plain = kern.clone()
+    for s in sets[:4]:
+        out_k, out_p = rowk.row_bump_cuda(kern, s), rowk.row_bump_plain(plain, s)
+        torch.cuda.synchronize()
+        errs["row_bump"] = max(errs["row_bump"], max_abs_err(kern, plain),
+                               max_abs_err(out_k, out_p))
+        check(torch.equal(out_k, out_p), "row_bump: outputs differ")
+        check(torch.equal(kern, plain), "row_bump: tables differ")
+    ones = torch.ones((B, 128), dtype=torch.int32, device=dev)
+    idx = [s.to(torch.int64) for s in sets]
+    # 16 slot sets cycled: 64 MB of rows, more than the 50 MB L2
+    t = timed_kernel(lambda i: rowk.row_bump_cuda(kern, sets[i % 16]),
+                     lambda i: rowk.row_bump_plain(plain, sets[i % 16]),
+                     lambda i: kern.index_add_(0, idx[i % 16], ones), "row_bump_kernel")
+    n_bytes = B * 512 * 2 + B * 4 + 4
+    b_ms, b_by = bound_ms(n_bytes, B * 128)
+    recs.append(dict(kernel="row_bump", m=B, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                     **t))
+    del kern, plain, ones, idx, sets
+    torch.cuda.empty_cache()
+    for r in recs:
+        log(f"  {r['kernel']:11s} m={r['m']:5d}: bit-equal; kernel {r['ms']:.5f} ms on the "
+            f"device, {r['call_ms']:.4f} ms per wrapper call; plain {r['plain_ms']:.4f} ms; "
+            f"library {r['library_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+            f"{r['m'] / r['ms'] * 1e3:,.0f} rows/s on the device")
+
+    log(f"  bench_rows (python3 -m gubernator_tpu_torch.bench_rows): {B} rows per call")
+    rowk.reset_launch_counts()
+    probe = bench_rows.run(dev)
+    launches = dict(rowk.launch_counts)
+    log(f"  {json.dumps(probe)}")
+    torch.cuda.empty_cache()
+    results["rows"] = recs
+    results["bench_rows"] = probe
+    return errs, recs, launches["row_bump"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -518,28 +803,32 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("== phase 1: build the CUDA kernels")
+    log("== phase 1: build the CUDA kernels and the key directory")
     t = time.perf_counter()
     build_logs = _build.build()
     build_s = time.perf_counter() - t
-    for name, text in build_logs.items():
+    for name, (text, secs) in sorted(build_logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
-    log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s")
+        log(f"  built {_build.source_path(name).name} in {secs:.1f} s")
+    log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s in all")
 
     results = {"card": smi, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "seed": args.seed,
-               "build_s": build_s, "decide_shapes": []}
+               "torch": torch.__version__, "seed": args.seed, "build_s": build_s,
+               "build_each_s": {k: v[1] for k, v in build_logs.items()},
+               "decide_shapes": []}
     decide_errs = phase_decide(args.seed, dev, results)
     eng_launches = phase_engine(args.seed, args.windows, dev, results)
+    py_launches = phase_engine_python(args.seed, PYTHON_DIR_WINDOWS, dev, results)
     glob_launches, ring_main = phase_global(args.seed, dev, results)
+    row_errs, row_recs, bump_launches = phase_rows(args.seed, dev, results)
 
     kernels = []
     for name in ("decide_wide", "decide_compact", "decide_lean"):
         main_shape = next(r for r in results["decide_shapes"]
                           if r["kernel"] == name and r["width"] == WINDOW)
-        n = eng_launches[name] + glob_launches[name]
+        n = eng_launches[name] + py_launches[name] + glob_launches[name]
         check(n > 0, f"{name} was never launched on the main path")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -556,6 +845,16 @@ def main(argv=None) -> int:
         plain_ms=ring_main["plain_ms"], bound_ms=ring_main["bound_ms"],
         bound_by=ring_main["bound_by"], library_ms=ring_main["library_ms"],
         call_ms=ring_main["call_ms"], shape=f"S={GLOBAL_SHARDS}, L={ring_main['L']}"))
+    for name in ("inject_rows", "gather_rows", "row_bump"):
+        n = bump_launches if name == "row_bump" else eng_launches[name]
+        check(n > 0, f"{name} was never launched on its main path")
+        r = next(r for r in row_recs if r["kernel"] == name
+                 and r["m"] == ROW_MAIN_M.get(name, r["m"]))
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=n, max_abs_err=row_errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            call_ms=r["call_ms"], shape=f"m={r['m']}"))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -5,36 +5,42 @@ its request-object path. The engine owns:
 
 - the key table, one i64[C, 8] tensor on the engine's device, updated IN
   PLACE by every window;
-- the host key directory (models/keyspace.py);
+- the host key directory: the C++ one (native/), or the python one
+  (models/keyspace.py) when GUBER_NO_NATIVE is set;
+- the native fast window: validate, first-occurrence round split, lookup
+  and pack in one C call; what it cannot take (invalid, gregorian and
+  duplicate lanes) runs through the python pipeline after it;
 - duplicate-key *rounds*: a window is split so each launch touches each
   slot at most once (occurrence k of a key goes to round k);
 - the staging choice per window: lean i32[W] lane words when eligible,
   else compact i32[5, W], else wide i64[9, W] (ops/decide.py);
-- the scan tail: the short trailing rounds run up to 32 windows per launch.
+- the scan tail: the short trailing rounds run up to 32 windows per launch;
+- the lone-request path: a key's row mirrored in the native directory
+  answers single requests in C, and the next window that looks the key up
+  injects the mirror's row back into the table first.
 
 On CUDA every window is one host-to-device copy of its staging, one launch
-of csrc/decide.cu and one copy of the response back. On the CPU the same
-path runs the plain PyTorch version. The engine is synchronous and
-thread-safe through one lock.
+of csrc/decide.cu and one copy of the response back; mirror rows go in and
+out through csrc/rows.cu. On the CPU the same path runs the plain PyTorch
+versions. The engine is synchronous and thread-safe through one lock.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional, Sequence
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.models.keyspace import KeyDirectory
+from gubernator_tpu_torch import native
 from gubernator_tpu_torch.models.prep import (
     bucket_pow2 as _bucket_pow2,
     bucket_width as _bucket_width,
     preprocess,
 )
 from gubernator_tpu_torch.ops.decide import (
-    I64,
-    TABLE_ROW_FIELDS,
     compact_window,
     decide_packed,
     decide_packed_compact,
@@ -49,28 +55,53 @@ from gubernator_tpu_torch.ops.decide import (
     staging_policy,
     widen_compact_out,
 )
-from gubernator_tpu_torch.types import RateLimitReq, RateLimitResp
+from gubernator_tpu_torch.ops.rows import gather_rows, inject_rows
+from gubernator_tpu_torch.types import (
+    SLOW_PATH_BEHAVIOR_MASK as _NATIVE_SINGLE_SLOW_MASK,
+    Behavior,
+    RateLimitReq,
+    RateLimitResp,
+)
 from gubernator_tpu_torch.utils.interval import millisecond_now
 from gubernator_tpu_torch.utils.platform import resolve_device
 
-
-def _inject_rows(state: torch.Tensor, slot, algo, limit, remaining, duration,
-                 stamp, expire_at, status) -> None:
-    """Scatter host-provided rows into the table IN PLACE (field 7 zeroed;
-    padding lanes, slot -1, are dropped)."""
-    slot = slot.to(I64)
-    rows = torch.stack(
-        [algo.to(I64), limit, remaining, duration, stamp, expire_at,
-         status.to(I64), torch.zeros_like(limit)], dim=1)
-    keep = (slot >= 0) & (slot < state.shape[-2])
-    state.index_copy_(0, slot[keep], rows[keep])
+_GREG_MASK = int(Behavior.DURATION_IS_GREGORIAN)
 
 
-def _gather_rows(state: torch.Tensor, slot):
-    """Fetch rows (7-column tuple, table row field order); -1 lanes read
-    row 0."""
-    rows = state.index_select(0, slot.to(I64).clamp(min=0))
-    return tuple(rows[:, i] for i in range(7))
+def _gather_rows(state: torch.Tensor, slot: torch.Tensor):
+    """Fetch rows (7-column tuple, table row field order); slots clamp to
+    [0, C-1] as the JAX package's gather does."""
+    return tuple(gather_rows(state, slot))
+
+
+class EngineStats:
+    """Counters plus a cumulative per-stage wall-clock breakdown, as the JAX
+    package's EngineStats keeps them.
+
+    The stage clocks (nanoseconds) split a window's host path: validate and
+    round split (`prep`), key-directory resolution (`lookup`), Store I/O
+    (`store`, always 0: the port has no Store yet), staging-buffer fill
+    (`pack`), kernel dispatch and readback (`device`) and response demux
+    (`demux`). Lock waits are left out."""
+
+    STAGES = ("prep", "lookup", "store", "pack", "device", "demux")
+
+    def __init__(self):
+        self.requests = 0
+        self.batches = 0
+        self.rounds = 0
+        self.over_limit = 0
+        self.errors = 0
+        self.native_singles = 0  # lone requests decided in C (no launch)
+        self.stage_ns = {s: 0 for s in self.STAGES}
+
+    def as_dict(self) -> Dict[str, int]:
+        d = dict(requests=self.requests, batches=self.batches,
+                 rounds=self.rounds, over_limit=self.over_limit,
+                 errors=self.errors, native_singles=self.native_singles)
+        for s, ns in self.stage_ns.items():
+            d[f"{s}_ns"] = ns
+        return d
 
 
 class Engine:
@@ -90,10 +121,16 @@ class Engine:
         self.device = resolve_device(device)
         self.capacity = capacity
         self.state = make_table(capacity, self.device)
-        self.directory = KeyDirectory(capacity)
+        self.directory = native.make_key_directory(capacity)
+        # the one-pass window prep calls the C++ directory directly; a
+        # python-directory engine keeps the python pipeline
+        self._prep_fast = (native.prep_pack_fast
+                           if isinstance(self.directory, native.NativeKeyDirectory)
+                           else None)
         self.min_width = min_width
         # one kernel round must never need more distinct slots than exist
         self.max_width = min(max_width, capacity)
+        self.stats = EngineStats()
         self._lock = threading.Lock()
         # lean staging needs every slot to fit the 24-bit lane field
         self._lean_ok = lean_capacity_ok(capacity)
@@ -105,8 +142,9 @@ class Engine:
 
     def warmup(self) -> None:
         """Run every staging format once at every width bucket and scan
-        depth the engine can dispatch, on all-padding windows (the table is
-        not touched). On CUDA this builds and loads the kernel before the
+        depth the engine can dispatch, on all-padding windows, then the
+        lone path's 1-slot gather and a dropped-lane inject (the table is
+        not touched). On CUDA this builds and loads the kernels before the
         first request instead of inside it."""
         widths = []
         w = self.min_width
@@ -140,6 +178,10 @@ class Engine:
                         decide_scan_packed_lean(self.state, self._up(ln[0]),
                                                 self._up(ln[1]), 0)
                 k *= 2
+            gather_rows(self.state, self._up(np.zeros(1, np.int32)))
+            warm_inject = np.zeros((1, 8), np.int64)
+            warm_inject[0, 0] = -1  # dropped lane: build, mutate nothing
+            self._apply_inject_rows(warm_inject)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -153,12 +195,17 @@ class Engine:
         """Decide a batch. Exact per-key sequential semantics, any batch size."""
         if now_ms is None:
             now_ms = millisecond_now()
+        if self._prep_fast is not None and 0 < len(requests) <= self.max_width:
+            fast = self._fast_window(requests, now_ms)
+            if fast is not None:
+                return fast
         return self._slow_window(requests, now_ms)
 
     # -------------------------------------------------- staging dispatch
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        """One host array onto the engine's device."""
+        """One host array onto the engine's device (a synchronous copy from
+        pageable memory, ordered before any later launch)."""
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _dispatch_staged(self, packed: np.ndarray, now_ms):
@@ -204,25 +251,25 @@ class Engine:
             return widen_compact_out(out, compact_now)
         return out
 
-    def _apply_inject_rows(self, inject) -> None:
-        """Scatter host rows i64[m, 8] (slot, algo, limit, remaining,
-        duration, stamp, expire_at, status) into the table. The python
-        directory returns none; the hook keeps the JAX engine's lookup
-        contract. Caller holds the engine lock."""
-        if inject is None or len(inject) == 0:
-            return
-        cols = [self._up(inject[:, f]) for f in range(TABLE_ROW_FIELDS)]
-        _inject_rows(self.state, *cols)
+    # ------------------------------------------------------------- windows
 
-    # ------------------------------------------------------------- internals
-
-    def _slow_window(self, requests, now_ms) -> List[RateLimitResp]:
+    def _slow_window(self, requests, now_ms,
+                     count_batch: bool = True) -> List[RateLimitResp]:
         """The python pipeline: full validation, gregorian precompute, and
-        duplicate-key round splitting (models/prep.py)."""
-        responses, rounds, _n_errors = preprocess(requests, now_ms)
+        duplicate-key round splitting (models/prep.py). `count_batch` is
+        False when called as a fast window's leftover tail: the client
+        batch was already counted there."""
+        t0 = time.perf_counter_ns()
+        responses, rounds, n_errors = preprocess(requests, now_ms)
+        prep_ns = time.perf_counter_ns() - t0  # excludes the lock wait below
         with self._lock:
+            self.stats.stage_ns["prep"] += prep_ns
+            self.stats.requests += len(requests)
+            self.stats.batches += 1 if count_batch else 0
+            self.stats.errors += n_errors
             windows = []
             for round_work in rounds:
+                self.stats.rounds += 1
                 for start in range(0, len(round_work), self.max_width):
                     windows.append(round_work[start:start + self.max_width])
             head, tail = self._split_scannable(windows)
@@ -231,6 +278,118 @@ class Engine:
             if tail:
                 self._apply_windows_scanned(tail, now_ms, responses)
         return responses  # type: ignore[return-value]
+
+    def _fast_window(self, requests, now_ms) -> Optional[List[RateLimitResp]]:
+        """Native one-pass window (native.prep_pack_fast). Lanes the C pass
+        cannot take (invalid, gregorian, duplicate occurrences) come back
+        as leftover item indices and run through the python pipeline AFTER
+        this round, which keeps exact per-key sequential semantics. The
+        lock is released between the round and the tail, as in the JAX
+        package: another caller's window may interleave there. Returns None
+        only for windows the native path cannot start (nothing mutated)."""
+        w = _bucket_width(len(requests), self.min_width, self.max_width)
+        packed = np.zeros((9, w), np.int64)
+        with self._lock:
+            t0 = time.perf_counter_ns()  # excludes the lock wait
+            n0, lane_item, leftover, inject = self._prep_fast(
+                self.directory, requests, packed, _GREG_MASK)
+            if n0 == native.PREP_OVERCOMMIT:
+                # mirror rows collected before the abort must still land
+                self._apply_inject_rows(inject)
+                raise RuntimeError(
+                    f"key directory over-committed: >{self.capacity} "
+                    "distinct keys in one lookup")
+            if n0 < 0:
+                return None
+            stage = self.stats.stage_ns
+            t1 = time.perf_counter_ns()
+            stage["prep"] += t1 - t0
+            self.stats.requests += n0
+            self.stats.batches += 1
+            self._apply_inject_rows(inject)
+            responses: List[Optional[RateLimitResp]] = [None] * len(requests)
+            if n0:
+                self.stats.rounds += 1
+                out = self._fetch_staged(self._dispatch_staged(packed, now_ms))
+                t2 = time.perf_counter_ns()
+                stage["device"] += t2 - t1
+                status, limit, remaining, reset = out[:, :n0].tolist()
+                over = 0
+                for j, i in enumerate(lane_item.tolist()):
+                    st = status[j]
+                    if st == 1:
+                        over += 1
+                    responses[i] = RateLimitResp(
+                        status=st, limit=limit[j], remaining=remaining[j],
+                        reset_time=reset[j])
+                self.stats.over_limit += over
+                stage["demux"] += time.perf_counter_ns() - t2
+        if len(leftover):
+            idxs = leftover.tolist()
+            tail = self._slow_window(
+                [requests[i] for i in idxs], now_ms, count_batch=False)
+            for i, resp in zip(idxs, tail):
+                responses[i] = resp
+        return responses  # type: ignore[return-value]
+
+    # --------------------------------------------- native lone-request path
+
+    def _apply_inject_rows(self, inject) -> None:
+        """Scatter reconciled mirror rows i64[m, 8] (slot, algo, limit,
+        remaining, duration, stamp, expire_at, status) into the table BEFORE
+        the window whose lookup surfaced them: the copy up is synchronous and
+        the inject launches on the stream the decide launch follows on.
+        Caller holds the engine lock."""
+        if inject is None or len(inject) == 0:
+            return
+        inject_rows(self.state, self._up(inject))
+
+    def decide_native_single(self, req: RateLimitReq,
+                             now_ms: int = 0) -> Optional[RateLimitResp]:
+        """Decide a lone request against the key's row mirror entirely in C
+        (keydir.cpp decide_one): no launch, no engine lock (the directory's
+        mutex serializes against batch lookups). None = miss (cold or
+        invalidated mirror, masked behavior, python directory): take the
+        kernel path, then seed_mirror(). now_ms=0 reads the wall clock."""
+        d = self.directory
+        if not hasattr(d, "decide_one"):
+            return None
+        if int(req.behavior) & _NATIVE_SINGLE_SLOW_MASK:
+            return None
+        if not req.name or not req.unique_key:
+            return None  # the kernel path produces the validation error
+        out = d.decide_one(req.hash_key(), req.hits, req.limit,
+                           req.duration, int(req.algorithm),
+                           int(req.behavior), now_ms)
+        if out is None:
+            return None
+        self.stats.requests += 1
+        self.stats.native_singles += 1
+        if out[0] == 1:
+            self.stats.over_limit += 1
+        return RateLimitResp(status=int(out[0]), limit=out[1],
+                             remaining=out[2], reset_time=out[3])
+
+    def seed_mirror(self, key: str) -> bool:
+        """Copy a key's row from the table into its directory mirror (one
+        1-slot gather), so later lone requests decide natively. False when
+        the directory keeps no mirrors, the key is unknown or its row is
+        vacant."""
+        d = self.directory
+        if not hasattr(d, "mirror_seed"):
+            return False
+        with self._lock:
+            slot = d.peek_slot(key)
+            if slot < 0:
+                return False
+            cols = gather_rows(self.state, self._up(np.array([slot], np.int32)))
+            row = cols[:, 0].tolist()
+            if row[0] < 0:
+                return False  # vacant row: nothing to mirror
+            d.mirror_seed(key, row)
+        return True
+
+    # ------------------------------------------------------------- internals
 
     def _split_scannable(self, windows):
         """Split the window list into a per-round head and a scannable tail.
@@ -257,17 +416,20 @@ class Engine:
         self._apply_inject_rows(inj)
         return slots, fresh
 
-    @staticmethod
-    def _demux(round_work, out, responses) -> None:
+    def _demux(self, round_work, out, responses) -> None:
         status, limit, remaining, reset = out[:, :len(round_work)].tolist()
         for j, (i, _r, _ge, _gi) in enumerate(round_work):
+            st = status[j]
+            if st == 1:
+                self.stats.over_limit += 1
             responses[i] = RateLimitResp(
-                status=status[j], limit=limit[j], remaining=remaining[j],
+                status=st, limit=limit[j], remaining=remaining[j],
                 reset_time=reset[j])
 
     def _apply_windows_scanned(self, windows, now_ms, responses) -> None:
         """Retire every scannable window in ⌈N/32⌉ launches, window k+1 of
         a launch observing window k's writes."""
+        stage = self.stats.stage_ns
         width = self.min_width  # _split_scannable guarantees every window fits
         for g0 in range(0, len(windows), self._MAX_SCAN):
             group = windows[g0:g0 + self._MAX_SCAN]
@@ -279,16 +441,33 @@ class Engine:
             stacked = np.zeros((k, 9, width), np.int64)
             stacked[:, 0, :] = -1  # pad windows are all padding lanes
             for gi, wk in enumerate(group):
+                t = time.perf_counter_ns()
                 slots, fresh = self._lookup(wk)
+                t2 = time.perf_counter_ns()
+                stage["lookup"] += t2 - t
                 pack_window(wk, slots, fresh, width, out=stacked[gi])
+                stage["pack"] += time.perf_counter_ns() - t2
+            t = time.perf_counter_ns()
             out = self._fetch_staged(self._dispatch_scan_staged(stacked, now_ms))
+            t2 = time.perf_counter_ns()
+            stage["device"] += t2 - t
             for gi, wk in enumerate(group):
                 self._demux(wk, out[gi], responses)
+            stage["demux"] += time.perf_counter_ns() - t2
 
     def _apply_round(self, round_work, now_ms, responses) -> None:
         """One window, one launch. Caller holds the engine lock."""
+        stage = self.stats.stage_ns
+        t = time.perf_counter_ns()
         slots, fresh = self._lookup(round_work)
+        t1 = time.perf_counter_ns()
+        stage["lookup"] += t1 - t
         w = _bucket_width(len(round_work), self.min_width, self.max_width)
         packed = pack_window(round_work, slots, fresh, w)
+        t2 = time.perf_counter_ns()
+        stage["pack"] += t2 - t1
         out = self._fetch_staged(self._dispatch_staged(packed, now_ms))
+        t3 = time.perf_counter_ns()
+        stage["device"] += t3 - t2
         self._demux(round_work, out, responses)
+        stage["demux"] += time.perf_counter_ns() - t3

@@ -1,0 +1,1433 @@
+// Native key directory: string key -> device table slot, with LRU recycling.
+//
+// The host-side hot loop of the framework: every request resolves its key to
+// a table row before the batch ships to the device (the role the reference's
+// LRU cache map plays in Go, reference: cache.go:53-165). The pure-Python
+// KeyDirectory (models/keyspace.py) implements identical semantics; this
+// C++ version exists because at >1M decisions/s the directory lookup is the
+// host bottleneck. Exposed through a C ABI consumed via ctypes
+// (gubernator_tpu/native/__init__.py).
+//
+// Design: open-addressing hash table (linear probing, power-of-two buckets)
+// over an entry arena of exactly `capacity` entries; intrusive doubly-linked
+// LRU list; per-call pin generation so one batch never hands the same slot
+// to two different keys (the kernel requires collision-free scatters).
+
+// Python.h first (it defines feature-test macros); used only by the
+// prep_pack fast path at the bottom — the core KeyDir is plain C++.
+#include <Python.h>
+
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <ctime>
+#include <mutex>
+#include <string>
+#include <unordered_set>
+#include <vector>
+
+namespace {
+
+constexpr uint64_t FNV_OFFSET = 14695981039346656037ull;
+constexpr uint64_t FNV_PRIME = 1099511628211ull;
+
+inline uint64_t fnv1a(const char* data, int32_t len) {
+    uint64_t h = FNV_OFFSET;
+    for (int32_t i = 0; i < len; ++i) {
+        h = (h ^ static_cast<uint8_t>(data[i])) * FNV_PRIME;
+    }
+    return h;
+}
+
+// Strict UTF-8 validation (overlongs, surrogates, >U+10FFFF rejected —
+// CPython-equivalent). The columnar prep takes raw wire bytes from an
+// unauthenticated port; a non-UTF-8 key must never enter the directory
+// (snapshot/dump decode keys as UTF-8, and the request-object path would
+// reject the same key — the tiers must agree).
+inline bool valid_utf8(const char* p, int32_t len) {
+    const uint8_t* s = reinterpret_cast<const uint8_t*>(p);
+    int32_t i = 0;
+    while (i < len) {
+        const uint8_t c = s[i];
+        if (c < 0x80) { i += 1; continue; }
+        if ((c & 0xE0) == 0xC0) {
+            if (c < 0xC2 || i + 1 >= len ||
+                (s[i + 1] & 0xC0) != 0x80) return false;
+            i += 2;
+        } else if ((c & 0xF0) == 0xE0) {
+            if (i + 2 >= len || (s[i + 1] & 0xC0) != 0x80 ||
+                (s[i + 2] & 0xC0) != 0x80) return false;
+            if (c == 0xE0 && s[i + 1] < 0xA0) return false;  // overlong
+            if (c == 0xED && s[i + 1] > 0x9F) return false;  // surrogate
+            i += 3;
+        } else if ((c & 0xF8) == 0xF0) {
+            if (c > 0xF4 || i + 3 >= len ||
+                (s[i + 1] & 0xC0) != 0x80 || (s[i + 2] & 0xC0) != 0x80 ||
+                (s[i + 3] & 0xC0) != 0x80) return false;
+            if (c == 0xF0 && s[i + 1] < 0x90) return false;  // overlong
+            if (c == 0xF4 && s[i + 1] > 0x8F) return false;  // >U+10FFFF
+            i += 4;
+        } else {
+            return false;
+        }
+    }
+    return true;
+}
+
+// ASCII fast path: one pass for the high bit, full validation only when set.
+inline bool key_bytes_ok(const char* p, int32_t len) {
+    bool ascii = true;
+    for (int32_t i = 0; i < len; ++i) ascii &= !(p[i] & 0x80);
+    return ascii || valid_utf8(p, len);
+}
+
+// Row mirror: host-resident copy of the key's device-table row, used by the
+// native lone-request fast path (keydir_decide_one) to decide WITHOUT a
+// kernel dispatch. Lifecycle: seeded from a device gather after a lone
+// miss; `valid` while no batch window has touched the key since; `dirty`
+// once a native decision mutated it — the next batch lookup emits the row
+// for injection into the device table (the reconciliation contract:
+// whoever looks a key up for a kernel window takes ownership of flushing
+// its mirror) and clears both flags. Row field order matches
+// ops/decide.py TableState: algo,limit,remaining,duration,stamp,expire,status.
+struct Mirror {
+    int64_t row[7];
+    bool valid = false;
+    bool dirty = false;
+};
+
+struct Entry {
+    std::string key;
+    int32_t slot = -1;
+    int32_t lru_prev = -1;  // entry indices, -1 = none
+    int32_t lru_next = -1;
+    uint64_t pin_gen = 0;
+    bool used = false;
+    Mirror mirror;
+};
+
+class KeyDir {
+  public:
+    explicit KeyDir(int64_t capacity)
+        : capacity_(capacity), entries_(capacity) {
+        nbuckets_ = 16;
+        while (nbuckets_ < static_cast<uint64_t>(capacity) * 2) nbuckets_ <<= 1;
+        buckets_.assign(nbuckets_, -1);
+        free_.reserve(capacity);
+        for (int64_t i = capacity - 1; i >= 0; --i) {
+            free_.push_back(static_cast<int32_t>(i));
+            entries_[i].slot = static_cast<int32_t>(i);
+        }
+    }
+
+    // Assign (or find) slots for a batch of keys. fresh_out[i] = 1 when the
+    // slot was newly assigned and the device row must be treated as vacant.
+    // Returns number resolved (== n unless the batch over-commits capacity).
+    //
+    // Mirror reconciliation: a key about to enter a kernel window must not
+    // leave a live mirror behind — the device row becomes authoritative the
+    // moment the window dispatches. A dirty mirror (native decisions since
+    // the seed) is emitted into `inject` (8 i64 per row: slot + the 7 row
+    // values) for the engine to scatter into the device table BEFORE the
+    // window decides; a merely-valid mirror is just invalidated.
+    int64_t lookup_batch(const char* data, const int64_t* offsets, int32_t n,
+                         int32_t* slots_out, uint8_t* fresh_out,
+                         int64_t* inject = nullptr,
+                         int32_t* n_inject = nullptr) {
+        std::lock_guard<std::mutex> g(mu_);
+        ++gen_;
+        int32_t ninj = 0;
+        // Hash pass + software prefetch: at 10M+ entries every probe is a
+        // DRAM miss (~100 ns), and the batch loop's per-key chain
+        // (bucket -> entry -> LRU links) is serialized on them. Hashing
+        // the whole batch first (arena bytes are cache-hot) lets the main
+        // loop prefetch the i+L'th bucket line while key i resolves.
+        constexpr int32_t LOOKAHEAD = 8;
+        hash_scratch_.resize(n);
+        const uint64_t mask = nbuckets_ - 1;
+        for (int32_t i = 0; i < n; ++i) {
+            hash_scratch_[i] = fnv1a(
+                data + offsets[i],
+                static_cast<int32_t>(offsets[i + 1] - offsets[i]));
+        }
+        for (int32_t i = 0; i < n && i < LOOKAHEAD; ++i) {
+            __builtin_prefetch(&buckets_[hash_scratch_[i] & mask]);
+        }
+        for (int32_t i = 0; i < n; ++i) {
+            if (i + LOOKAHEAD < n) {
+                __builtin_prefetch(
+                    &buckets_[hash_scratch_[i + LOOKAHEAD] & mask]);
+            }
+            const char* key = data + offsets[i];
+            const int32_t len = static_cast<int32_t>(offsets[i + 1] - offsets[i]);
+            int32_t e = find_h(hash_scratch_[i], key, len);
+            if (e >= 0) {
+                Entry& ent = entries_[e];
+                lru_touch(e);
+                ent.pin_gen = gen_;
+                slots_out[i] = ent.slot;
+                fresh_out[i] = 0;
+                if (ent.mirror.valid) {
+                    if (ent.mirror.dirty && inject != nullptr) {
+                        int64_t* out = inject + 8 * ninj++;
+                        out[0] = ent.slot;
+                        std::memcpy(out + 1, ent.mirror.row,
+                                    7 * sizeof(int64_t));
+                    }
+                    ent.mirror.valid = ent.mirror.dirty = false;
+                }
+                continue;
+            }
+            e = allocate();
+            if (e < 0) {  // over-committed: >capacity distinct keys pinned
+                for (int32_t j = i; j < n; ++j) slots_out[j] = -1;
+                if (n_inject != nullptr) *n_inject = ninj;
+                return i;
+            }
+            Entry& ent = entries_[e];
+            ent.key.assign(key, len);
+            ent.used = true;
+            ent.pin_gen = gen_;
+            ent.mirror.valid = ent.mirror.dirty = false;
+            insert_bucket(e);
+            lru_push_front(e);
+            slots_out[i] = ent.slot;
+            fresh_out[i] = 1;
+        }
+        if (n_inject != nullptr) *n_inject = ninj;
+        return n;
+    }
+
+    // Forget a key, returning its slot to the free list.
+    void drop(const char* key, int32_t len) {
+        std::lock_guard<std::mutex> g(mu_);
+        int32_t e = find(key, len);
+        if (e < 0) return;
+        // unlink from the LRU before touching buckets: remove_bucket may
+        // trigger a rebuild, which reinserts exactly the LRU-linked entries
+        lru_unlink(e);
+        remove_bucket(e);
+        entries_[e].used = false;
+        entries_[e].key.clear();
+        entries_[e].mirror.valid = entries_[e].mirror.dirty = false;
+        free_.push_back(e);
+    }
+
+    // Peek a key's slot without recency effects; -1 if absent.
+    int32_t peek(const char* key, int32_t len) const {
+        std::lock_guard<std::mutex> g(mu_);
+        int32_t e = find(key, len);
+        return e < 0 ? -1 : entries_[e].slot;
+    }
+
+    // Drain every dirty mirror (snapshot/shutdown coherence): emits up to
+    // max_rows reconciliation rows (slot + 7 values) and clears the flags.
+    // Returns the count; callers loop until 0.
+    int32_t mirror_flush(int64_t* inject, int32_t max_rows) {
+        std::lock_guard<std::mutex> g(mu_);
+        int32_t ninj = 0;
+        for (int32_t e = lru_head_; e >= 0 && ninj < max_rows;
+             e = entries_[e].lru_next) {
+            Mirror& m = entries_[e].mirror;
+            if (!m.dirty) continue;
+            int64_t* out = inject + 8 * ninj++;
+            out[0] = entries_[e].slot;
+            std::memcpy(out + 1, m.row, 7 * sizeof(int64_t));
+            m.valid = m.dirty = false;
+        }
+        return ninj;
+    }
+
+    // Seed a key's mirror from a freshly-gathered device row. Only
+    // meaningful for a live row; the caller gathers under the engine lock
+    // so the row is post-window-authoritative.
+    void mirror_seed(const char* key, int32_t len, const int64_t* row7) {
+        std::lock_guard<std::mutex> g(mu_);
+        int32_t e = find(key, len);
+        if (e < 0) return;
+        std::memcpy(entries_[e].mirror.row, row7, 7 * sizeof(int64_t));
+        entries_[e].mirror.valid = true;
+        entries_[e].mirror.dirty = false;
+    }
+
+    // The native lone-request fast path: decide against the key's mirror
+    // row with the exact oracle semantics (ops/oracle.py, the executable
+    // spec of algorithms.go) — no Python, no GIL, no kernel dispatch.
+    // Returns 1 and fills out4 = {status, limit, remaining, reset_time}
+    // when the mirror is live; 0 = miss (caller takes the kernel path).
+    int decide_one(const char* key, int32_t len, int64_t hits, int64_t limit,
+                   int64_t duration, int32_t algorithm, int32_t behavior,
+                   int64_t now, int64_t* out4) {
+        std::lock_guard<std::mutex> g(mu_);
+        int32_t e = find(key, len);
+        if (e < 0 || !entries_[e].mirror.valid) return 0;
+        Entry& ent = entries_[e];
+        int64_t* r = ent.mirror.row;  // algo,limit,rem,dur,stamp,expire,status
+        const bool reset_rem = (behavior & 8) != 0;  // RESET_REMAINING
+        const bool alive = r[0] == algorithm && now <= r[5];
+        if (!alive) return 0;  // vacant/expired/switched: kernel path creates
+        ent.mirror.dirty = true;
+        lru_touch(e);
+        if (algorithm == 0) {  // ---- token bucket (oracle_decide) ----
+            if (reset_rem) {
+                // "delete the bucket": a vacant row reconciles to device
+                r[0] = -1;
+                out4[0] = 0; out4[1] = limit; out4[2] = limit; out4[3] = 0;
+                return 1;
+            }
+            int64_t rem = (r[1] != limit && r[2] > limit) ? limit : r[2];
+            const int64_t new_exp = r[4] + duration;
+            const bool dur_changed = r[3] != duration;
+            if (dur_changed && new_exp < now) {
+                // expired-under-new-duration: recreate (kernel-path rules)
+                const bool over = hits > limit;
+                const int64_t nrem = over ? limit : limit - hits;
+                const int64_t exp = now + duration;
+                r[0] = 0; r[1] = limit; r[2] = nrem; r[3] = duration;
+                r[4] = now; r[5] = exp; r[6] = 0;
+                out4[0] = over ? 1 : 0; out4[1] = limit; out4[2] = nrem;
+                out4[3] = exp;
+                return 1;
+            }
+            const int64_t exp = dur_changed ? new_exp : r[5];
+            int64_t status_resp = r[6], status_store = r[6];
+            if (hits != 0) {
+                if (rem == 0) {
+                    status_resp = status_store = 1;
+                } else if (hits > rem) {
+                    status_resp = 1;
+                } else {
+                    rem -= hits;
+                }
+            }
+            r[1] = limit; r[2] = rem; r[3] = duration; r[5] = exp;
+            r[6] = status_store;
+            out4[0] = status_resp; out4[1] = limit; out4[2] = rem;
+            out4[3] = exp;
+            return 1;
+        }
+        // ---- leaky bucket (oracle_decide) ----
+        int64_t rem = reset_rem ? limit : r[2];
+        const int64_t lim_div = limit > 1 ? limit : 1;
+        int64_t rate = duration / lim_div;
+        if (rate < 1) rate = 1;
+        int64_t elapsed = now - r[4];
+        if (elapsed < 0) elapsed = 0;
+        rem += elapsed / rate;
+        if (rem > limit) rem = limit;
+        const bool rem_zero = rem == 0;
+        const bool over = hits > rem;
+        const bool deduct = hits != 0 && !rem_zero && !over;
+        if (!rem_zero && hits != 0) r[4] = now;
+        if (deduct) r[5] = now + duration;
+        const int64_t new_rem = deduct ? rem - hits : rem;
+        r[1] = limit; r[3] = duration; r[2] = new_rem;
+        out4[0] = (rem_zero || (hits != 0 && over)) ? 1 : 0;
+        out4[1] = limit; out4[2] = new_rem; out4[3] = now + rate;
+        return 1;
+    }
+
+    // Dump all (key, slot) pairs, MRU->LRU. Keys are written back-to-back
+    // into key_buf with offsets (n+1 entries). Returns item count, or
+    // -needed_bytes when key_buf is too small.
+    int64_t dump(char* key_buf, int64_t buf_cap, int64_t* offsets,
+                 int32_t* slots, int64_t max_items) const {
+        std::lock_guard<std::mutex> g(mu_);
+        int64_t nbytes = 0, count = 0;
+        for (int32_t e = lru_head_; e >= 0; e = entries_[e].lru_next) {
+            nbytes += static_cast<int64_t>(entries_[e].key.size());
+            ++count;
+        }
+        if (nbytes > buf_cap || count > max_items) return -nbytes;
+        int64_t off = 0, i = 0;
+        for (int32_t e = lru_head_; e >= 0; e = entries_[e].lru_next, ++i) {
+            const std::string& k = entries_[e].key;
+            std::memcpy(key_buf + off, k.data(), k.size());
+            offsets[i] = off;
+            off += static_cast<int64_t>(k.size());
+            slots[i] = entries_[e].slot;
+        }
+        offsets[i] = off;
+        return count;
+    }
+
+    int64_t size() const {
+        std::lock_guard<std::mutex> g(mu_);
+        return capacity_ - static_cast<int64_t>(free_.size());
+    }
+    int64_t evictions() const { return evictions_; }
+    int64_t capacity() const { return capacity_; }
+
+  private:
+    void diag_abort(const char* where) const {
+        int64_t tomb = 0, occ = 0;
+        for (uint64_t i = 0; i < nbuckets_; ++i) {
+            if (buckets_[i] == TOMBSTONE) ++tomb;
+            else if (buckets_[i] != -1) ++occ;
+        }
+        std::fprintf(stderr,
+                     "keydir %s: probe chain exceeded nbuckets=%llu "
+                     "(occupied=%lld tombstones=%lld size=%lld free=%zu "
+                     "evictions=%lld)\n",
+                     where, (unsigned long long)nbuckets_, (long long)occ,
+                     (long long)tomb, (long long)size(), free_.size(),
+                     (long long)evictions_);
+        std::abort();
+    }
+
+    int32_t find(const char* key, int32_t len) const {
+        return find_h(fnv1a(key, len), key, len);
+    }
+
+    int32_t find_h(uint64_t h, const char* key, int32_t len) const {
+        uint64_t mask = nbuckets_ - 1;
+        uint64_t b = h & mask;
+        for (uint64_t probes = 0; buckets_[b] != -1; ++probes) {
+            if (probes > nbuckets_) diag_abort("find");
+            int32_t e = buckets_[b];
+            if (e != TOMBSTONE && entries_[e].key.size() == static_cast<size_t>(len)
+                && std::memcmp(entries_[e].key.data(), key, len) == 0) {
+                return e;
+            }
+            b = (b + 1) & mask;
+        }
+        return -1;
+    }
+
+    void insert_bucket(int32_t e) {
+        uint64_t mask = nbuckets_ - 1;
+        uint64_t b = fnv1a(entries_[e].key.data(),
+                           static_cast<int32_t>(entries_[e].key.size())) & mask;
+        uint64_t probes = 0;
+        while (buckets_[b] != -1 && buckets_[b] != TOMBSTONE) {
+            if (++probes > nbuckets_) diag_abort("insert");
+            b = (b + 1) & mask;
+        }
+        if (buckets_[b] == TOMBSTONE) --tombstones_;
+        buckets_[b] = e;
+    }
+
+    // Tombstone a bucket. Under sustained LRU churn (every insert evicts)
+    // tombstones accumulate until occupied + tombstones == nbuckets and
+    // find() of an ABSENT key has no empty bucket to stop at — an infinite
+    // probe loop on a full table. Rebuild the bucket array once tombstones
+    // exceed a quarter of it: occupied is <= nbuckets/2 by construction, so
+    // after a rebuild at least a quarter of the buckets are empty and probe
+    // chains stay short. Amortized O(1) per removal.
+    void remove_bucket(int32_t e) {
+        uint64_t mask = nbuckets_ - 1;
+        uint64_t b = fnv1a(entries_[e].key.data(),
+                           static_cast<int32_t>(entries_[e].key.size())) & mask;
+        for (uint64_t probes = 0; buckets_[b] != -1; ++probes) {
+            if (probes > nbuckets_) diag_abort("remove");
+            if (buckets_[b] == e) {
+                buckets_[b] = TOMBSTONE;
+                if (++tombstones_ > nbuckets_ / 4) rebuild_buckets();
+                return;
+            }
+            b = (b + 1) & mask;
+        }
+    }
+
+    void rebuild_buckets() {
+        buckets_.assign(nbuckets_, -1);
+        tombstones_ = 0;
+        for (int32_t e = lru_head_; e >= 0; e = entries_[e].lru_next) {
+            insert_bucket(e);
+        }
+    }
+
+    int32_t allocate() {
+        if (!free_.empty()) {
+            int32_t e = free_.back();
+            free_.pop_back();
+            return e;
+        }
+        // evict LRU, skipping entries pinned by the current batch
+        for (int32_t e = lru_tail_; e >= 0; e = entries_[e].lru_prev) {
+            if (entries_[e].pin_gen == gen_) continue;
+            // unlink before remove_bucket: a tombstone-triggered rebuild
+            // reinserts exactly the LRU-linked entries
+            lru_unlink(e);
+            remove_bucket(e);
+            entries_[e].key.clear();
+            entries_[e].used = false;
+            ++evictions_;
+            return e;
+        }
+        return -1;
+    }
+
+    // ---- intrusive LRU list: head = most recent ----
+    void lru_push_front(int32_t e) {
+        entries_[e].lru_prev = -1;
+        entries_[e].lru_next = lru_head_;
+        if (lru_head_ >= 0) entries_[lru_head_].lru_prev = e;
+        lru_head_ = e;
+        if (lru_tail_ < 0) lru_tail_ = e;
+    }
+
+    void lru_unlink(int32_t e) {
+        Entry& ent = entries_[e];
+        if (ent.lru_prev >= 0) entries_[ent.lru_prev].lru_next = ent.lru_next;
+        else lru_head_ = ent.lru_next;
+        if (ent.lru_next >= 0) entries_[ent.lru_next].lru_prev = ent.lru_prev;
+        else lru_tail_ = ent.lru_prev;
+        ent.lru_prev = ent.lru_next = -1;
+    }
+
+    void lru_touch(int32_t e) {
+        if (lru_head_ == e) return;
+        lru_unlink(e);
+        lru_push_front(e);
+    }
+
+    static constexpr int32_t TOMBSTONE = -2;
+    // Guards every public entry point. The engine's own (Python) lock
+    // already serializes batch callers; this mutex exists so the native
+    // lone-request fast path (decide_one, called from the peerlink IO
+    // thread WITHOUT the GIL) is atomic against them.
+    mutable std::mutex mu_;
+    int64_t capacity_;
+    uint64_t nbuckets_;
+    std::vector<Entry> entries_;
+    std::vector<int32_t> buckets_;
+    std::vector<int32_t> free_;
+    int32_t lru_head_ = -1;
+    int32_t lru_tail_ = -1;
+    uint64_t gen_ = 0;
+    int64_t evictions_ = 0;
+    uint64_t tombstones_ = 0;
+    // batch-hash scratch for lookup_batch's prefetch pass (under mu_)
+    std::vector<uint64_t> hash_scratch_;
+};
+
+}  // namespace
+
+extern "C" {
+
+void* keydir_new(int64_t capacity) { return new KeyDir(capacity); }
+void keydir_free(void* kd) { delete static_cast<KeyDir*>(kd); }
+
+int64_t keydir_lookup_batch(void* kd, const char* data, const int64_t* offsets,
+                            int32_t n, int32_t* slots_out, uint8_t* fresh_out,
+                            int64_t* inject, int32_t* n_inject) {
+    return static_cast<KeyDir*>(kd)->lookup_batch(data, offsets, n, slots_out,
+                                                  fresh_out, inject, n_inject);
+}
+
+void keydir_mirror_seed(void* kd, const char* key, int32_t len,
+                        const int64_t* row7) {
+    static_cast<KeyDir*>(kd)->mirror_seed(key, len, row7);
+}
+
+int32_t keydir_mirror_flush(void* kd, int64_t* inject, int32_t max_rows) {
+    return static_cast<KeyDir*>(kd)->mirror_flush(inject, max_rows);
+}
+
+// The native lone-request decision (see KeyDir::decide_one). Safe to call
+// WITHOUT the GIL from any thread — the KeyDir mutex serializes it against
+// batch lookups. now_ms <= 0 means "read the wall clock here".
+int32_t keydir_decide_one(void* kd, const char* key, int32_t len,
+                          int64_t hits, int64_t limit, int64_t duration,
+                          int32_t algorithm, int32_t behavior, int64_t now_ms,
+                          int64_t* out4) {
+    if (now_ms <= 0) {
+        struct timespec ts;
+        clock_gettime(CLOCK_REALTIME, &ts);
+        now_ms = static_cast<int64_t>(ts.tv_sec) * 1000 +
+                 ts.tv_nsec / 1000000;
+    }
+    return static_cast<KeyDir*>(kd)->decide_one(
+        key, len, hits, limit, duration, algorithm, behavior, now_ms, out4);
+}
+
+void keydir_drop(void* kd, const char* key, int32_t len) {
+    static_cast<KeyDir*>(kd)->drop(key, len);
+}
+
+int32_t keydir_peek(void* kd, const char* key, int32_t len) {
+    return static_cast<KeyDir*>(kd)->peek(key, len);
+}
+
+// Batch peek for the streamed binary snapshot: one GIL-free pass verifies
+// a whole slab's slot attributions (keydir_peek per row would pay 10M
+// ctypes crossings at production scale). Never touches LRU order.
+int64_t keydir_peek_batch(void* kd, const char* keys, const int64_t* offsets,
+                          int64_t n, int32_t* slots_out) {
+    KeyDir* d = static_cast<KeyDir*>(kd);
+    for (int64_t i = 0; i < n; ++i) {
+        slots_out[i] = d->peek(
+            keys + offsets[i],
+            static_cast<int32_t>(offsets[i + 1] - offsets[i]));
+    }
+    return n;
+}
+
+int64_t keydir_dump(void* kd, char* key_buf, int64_t buf_cap, int64_t* offsets,
+                    int32_t* slots, int64_t max_items) {
+    return static_cast<KeyDir*>(kd)->dump(key_buf, buf_cap, offsets, slots,
+                                          max_items);
+}
+
+int64_t keydir_size(void* kd) { return static_cast<KeyDir*>(kd)->size(); }
+int64_t keydir_evictions(void* kd) {
+    return static_cast<KeyDir*>(kd)->evictions();
+}
+
+// Batch fnv1a64 % n_owners for host-side owner routing
+// (parallel/mesh.py shard_of_key; reference: replicated_hash.go:24).
+void fnv1a_owner_batch(const char* data, const int64_t* offsets, int32_t n,
+                       int32_t n_owners, int32_t* owners_out) {
+    for (int32_t i = 0; i < n; ++i) {
+        uint64_t h = fnv1a(data + offsets[i],
+                           static_cast<int32_t>(offsets[i + 1] - offsets[i]));
+        owners_out[i] = static_cast<int32_t>(h % static_cast<uint64_t>(n_owners));
+    }
+}
+
+// Batch 63-bit nonzero fingerprints for the device directory
+// (ops/devdir.py key_fingerprint: fnv1a64 masked to 63 bits, |1).
+void fnv1a_fingerprint_batch(const char* data, const int64_t* offsets,
+                             int32_t n, int64_t* out) {
+    for (int32_t i = 0; i < n; ++i) {
+        uint64_t h = fnv1a(data + offsets[i],
+                           static_cast<int32_t>(offsets[i + 1] - offsets[i]));
+        out[i] = static_cast<int64_t>((h & ((1ull << 63) - 1)) | 1ull);
+    }
+}
+
+namespace {
+
+// Shared per-item reader for the two prep entry points below: pulls the
+// RateLimitReq slots, builds the name_key (reference: client.go:33), and
+// applies the demotion mask. `ok` false (or an empty key) means the lane
+// belongs in the python-pipeline leftovers. GIL must be held.
+struct ParsedItem {
+    bool ok;
+    std::string key;
+    int64_t vals[5];  // hits, limit, duration, algorithm, behavior
+};
+
+PyObject** prep_attr_names() {
+    static PyObject* names[7] = {nullptr};
+    if (names[0] == nullptr) {
+        names[0] = PyUnicode_InternFromString("name");
+        names[1] = PyUnicode_InternFromString("unique_key");
+        names[2] = PyUnicode_InternFromString("hits");
+        names[3] = PyUnicode_InternFromString("limit");
+        names[4] = PyUnicode_InternFromString("duration");
+        names[5] = PyUnicode_InternFromString("algorithm");
+        names[6] = PyUnicode_InternFromString("behavior");
+    }
+    return names;
+}
+
+ParsedItem parse_item(PyObject* o, int64_t slow_mask) {
+    PyObject** s = prep_attr_names();
+    ParsedItem p;
+    p.ok = true;
+    for (int64_t& v : p.vals) v = 0;
+    PyObject* attrs[2] = {nullptr, nullptr};
+    PyObject* ints[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+    do {
+        attrs[0] = PyObject_GetAttr(o, s[0]);
+        attrs[1] = PyObject_GetAttr(o, s[1]);
+        if (!attrs[0] || !attrs[1]) { p.ok = false; break; }
+        Py_ssize_t nm_len, uk_len;
+        const char* nm = PyUnicode_AsUTF8AndSize(attrs[0], &nm_len);
+        const char* uk = PyUnicode_AsUTF8AndSize(attrs[1], &uk_len);
+        if (!nm || !uk || nm_len == 0 || uk_len == 0) {
+            p.ok = false;  // non-str or empty: python path errors it
+            break;
+        }
+        p.key.reserve(nm_len + 1 + uk_len);
+        p.key.append(nm, nm_len);
+        p.key.push_back('_');
+        p.key.append(uk, uk_len);
+        for (int f = 0; f < 5 && p.ok; ++f) {
+            ints[f] = PyObject_GetAttr(o, s[f + 2]);
+            if (ints[f] == nullptr) { p.ok = false; break; }
+            const int64_t v = PyLong_AsLongLong(ints[f]);
+            if (v == -1 && PyErr_Occurred()) { p.ok = false; break; }
+            p.vals[f] = v;
+        }
+        if (p.ok && (p.vals[4] & slow_mask)) p.ok = false;
+    } while (false);
+    for (PyObject* a : attrs) Py_XDECREF(a);
+    for (PyObject* v : ints) Py_XDECREF(v);
+    if (PyErr_Occurred()) PyErr_Clear();
+    return p;
+}
+
+}  // namespace
+
+// One-pass native window prep: collapse the python validate -> round-split
+// -> directory lookup -> pack_window pipeline (models/prep.py preprocess +
+// ops/decide.py pack_window) for the FIRST round of a window, reading the
+// RateLimitReq slots directly. Lanes the fast path can't take — invalid
+// requests, gregorian lanes (host calendar math), duplicate-key occurrences
+// past the first, and every later occurrence of a key once one lane of it
+// went to the leftovers (per-key order must hold) — are returned as
+// `leftover` item indices for the python pipeline to run AFTER this round.
+//
+// items: a sequence of RateLimitReq; packed: zeroed i64[9, width] row-major
+// (decide_packed's staging-row contract); greg_mask: the
+// Behavior.DURATION_IS_GREGORIAN bit (passed in so the value can't drift
+// from types.py); lane_item: i32[width] out — original item index per
+// packed lane; leftover: i32[len(items)] out; n_leftover_out: i32[1] out.
+//
+// Returns n0 >= 0 (lanes packed; lane j answers items[lane_item[j]]);
+// PREP_FALLBACK for a non-sequence or len > width (nothing mutated);
+// PREP_OVERCOMMIT when the directory over-commits mid-lookup (the python
+// lookup raises on the same condition).
+//
+// MUST be called with the GIL held (load via ctypes.PyDLL, not CDLL).
+int32_t keydir_prep_pack_fast(void* kd, PyObject* items, int64_t* packed,
+                              int32_t width, int64_t greg_mask,
+                              int32_t* lane_item, int32_t* leftover,
+                              int32_t* n_leftover_out,
+                              int64_t* inject, int32_t* n_inject) {
+    PyObject* seq = PySequence_Fast(items, "prep_pack_fast expects a sequence");
+    if (seq == nullptr) {
+        PyErr_Clear();
+        return -1;
+    }
+    const Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    if (n == 0 || n > width) {
+        Py_DECREF(seq);
+        return -1;
+    }
+
+    std::vector<std::string> keys;      // round-0 keys, lane order
+    std::vector<int32_t> lanes;         // round-0 item index per lane
+    std::vector<int64_t> col(5 * n);    // hits/limit/duration/algo/behavior
+    // Every key with a computable identity enters `seen` on first sight,
+    // accepted or not: once any lane of a key is a leftover, every later
+    // occurrence must follow it there, or the python tail would apply
+    // occurrence k before occurrence k-1 (per-key sequential semantics,
+    // reference: gubernator.go:328's mutex).
+    std::unordered_set<std::string> seen;
+    seen.reserve(n);
+    keys.reserve(n);
+    lanes.reserve(n);
+    int32_t n_left = 0;
+    for (Py_ssize_t i = 0; i < n; ++i) {
+        ParsedItem p = parse_item(PySequence_Fast_GET_ITEM(seq, i), greg_mask);
+        const bool first = !p.key.empty() && seen.insert(p.key).second;
+        if (p.ok && first) {
+            const size_t lane = keys.size();
+            for (int f = 0; f < 5; ++f) col[f * n + lane] = p.vals[f];
+            keys.push_back(std::move(p.key));
+            lanes.push_back(static_cast<int32_t>(i));
+        } else {
+            leftover[n_left++] = static_cast<int32_t>(i);
+        }
+    }
+    Py_DECREF(seq);
+
+    const Py_ssize_t n0 = static_cast<Py_ssize_t>(keys.size());
+    *n_leftover_out = n_left;
+    if (n0 == 0) return 0;
+
+    // ---- directory lookup + pack ---------------------------------------
+    std::string arena;
+    std::vector<int64_t> offsets(n0 + 1);
+    size_t total = 0;
+    for (const std::string& k : keys) total += k.size();
+    arena.reserve(total);
+    for (Py_ssize_t i = 0; i < n0; ++i) {
+        offsets[i] = static_cast<int64_t>(arena.size());
+        arena += keys[i];
+    }
+    offsets[n0] = static_cast<int64_t>(arena.size());
+
+    std::vector<int32_t> slots(n0);
+    std::vector<uint8_t> fresh(n0);
+    const int64_t done = static_cast<KeyDir*>(kd)->lookup_batch(
+        arena.data(), offsets.data(), static_cast<int32_t>(n0),
+        slots.data(), fresh.data(), inject, n_inject);
+    if (done != n0) return -2;  // over-commit: python lookup raises here too
+
+    int64_t* const row_slot = packed;
+    for (Py_ssize_t i = 0; i < n0; ++i) row_slot[i] = slots[i];
+    for (int32_t i = static_cast<int32_t>(n0); i < width; ++i) row_slot[i] = -1;
+    for (int f = 0; f < 5; ++f) {
+        std::memcpy(packed + (f + 1) * width, col.data() + f * n,
+                    n0 * sizeof(int64_t));
+    }
+    // rows 6/7 (gregorian) stay zero; row 8 = fresh flags
+    int64_t* const row_fresh = packed + 8 * width;
+    for (Py_ssize_t i = 0; i < n0; ++i) row_fresh[i] = fresh[i];
+    std::memcpy(lane_item, lanes.data(), n0 * sizeof(int32_t));
+    return static_cast<int32_t>(n0);
+}
+
+// Columnar one-pass window prep: the same contract as keydir_prep_pack_fast
+// (validate -> first-occurrence round split -> directory lookup -> pack) but
+// the input is COLUMNS instead of RateLimitReq objects — exactly the arrays
+// the peerlink transport already produces (peerlink.cpp pls_next_batch):
+// a key arena (name bytes + unique_key bytes back to back per item, split
+// by name_len) plus int columns. No CPython API anywhere, so this is called
+// through CDLL with the GIL RELEASED — on a multicore host the peerlink
+// workers' preps overlap each other and the device.
+//
+// The engine key is name + '_' + unique_key (reference: client.go:33).
+// A lane demotes to the python-pipeline leftovers when: empty name or
+// unique_key, behavior & slow_mask (gregorian needs host calendar math;
+// GLOBAL / MULTI_REGION must peel off to the host managers), or a
+// duplicate occurrence (per-key sequential order).
+//
+// Returns n0 lanes packed into `packed` (zeroed i64[9, width], decide
+// staging rows), PREP_FALLBACK (n<=0 or n>width, nothing mutated), or
+// PREP_OVERCOMMIT.
+namespace {
+
+// Open-addressing set of 64-bit key fingerprints for the columnar preps'
+// in-window duplicate detection — an unordered_set<std::string> costs an
+// allocation + copy + compare per key (~40% of the per-item budget);
+// fnv1a64 of name + '_' + unique_key replaces it. A 64-bit collision
+// merely DEMOTES the later lane to the request-object pipeline
+// (unnecessary but correct — the same thing a real duplicate does), at
+// probability ~n^2/2^65 per window (~1e-12 at 8192 wide).
+struct FpSet {
+    std::vector<uint64_t> slots;  // 0 = empty (fp 0 remapped to 1)
+    uint64_t mask;
+
+    explicit FpSet(int32_t n) {
+        size_t cap = 64;
+        while (cap < static_cast<size_t>(n) * 2) cap <<= 1;
+        slots.assign(cap, 0);
+        mask = cap - 1;
+    }
+
+    // returns true when newly inserted (first occurrence)
+    bool insert(uint64_t fp) {
+        if (fp == 0) fp = 1;
+        uint64_t h = fp;
+        for (;;) {
+            uint64_t& s = slots[h & mask];
+            if (s == fp) return false;
+            if (s == 0) {
+                s = fp;
+                return true;
+            }
+            ++h;
+        }
+    }
+};
+
+inline uint64_t fnv1a64(uint64_t h, const char* p, int32_t len) {
+    for (int32_t i = 0; i < len; ++i) {
+        h ^= static_cast<unsigned char>(p[i]);
+        h *= 0x100000001b3ULL;
+    }
+    return h;
+}
+constexpr uint64_t FNV64_SEED = 0xcbf29ce484222325ULL;
+
+// One window lane's joined-key fingerprint (name + '_' + unique_key).
+inline uint64_t lane_fp(const char* keys, int32_t lo, int32_t nl,
+                        int32_t ul) {
+    uint64_t fp = fnv1a64(FNV64_SEED, keys + lo, nl);
+    fp = fnv1a64(fp, "_", 1);
+    return fnv1a64(fp, keys + lo + nl, ul);
+}
+
+}  // namespace
+
+int32_t keydir_prep_pack_columnar(
+    void* kd, int32_t n, const char* keys, const int32_t* key_off,
+    const int32_t* name_len, const int64_t* hits, const int64_t* limit,
+    const int64_t* duration, const int32_t* algorithm,
+    const int32_t* behavior, int64_t slow_mask, int64_t* packed,
+    int32_t width, int32_t* lane_item, int32_t* leftover,
+    int32_t* n_leftover_out, int64_t* inject, int32_t* n_inject) {
+    if (n <= 0 || n > width) return -1;
+
+    std::string arena;          // '_'-joined engine keys, back to back
+    std::vector<int64_t> offsets;
+    std::vector<int32_t> lanes;
+    std::vector<int64_t> col(5 * static_cast<size_t>(n));
+    FpSet seen(n);  // same per-key order rule as keydir_prep_pack_fast
+    offsets.reserve(n + 1);
+    offsets.push_back(0);
+    lanes.reserve(n);
+    arena.reserve(static_cast<size_t>(key_off[n] - key_off[0]) + n);
+    int32_t n_left = 0;
+    for (int32_t i = 0; i < n; ++i) {
+        const int32_t lo = key_off[i], hi = key_off[i + 1];
+        const int32_t nl = name_len[i], ul = hi - lo - nl;
+        // name and unique_key validate SEPARATELY: a multi-byte sequence
+        // straddling the boundary must not pass (each field decodes on its
+        // own in the request-object path — the tiers must agree)
+        bool ok = nl > 0 && ul > 0 && (behavior[i] & slow_mask) == 0 &&
+                  key_bytes_ok(keys + lo, nl) &&
+                  key_bytes_ok(keys + lo + nl, ul);
+        if (nl > 0 && ul > 0) {
+            // every well-formed key enters `seen` (even slow-mask lanes)
+            // so any LATER occurrence of the same key also demotes
+            // (per-key order)
+            const bool first = seen.insert(lane_fp(keys, lo, nl, ul));
+            ok = ok && first;
+        }
+        if (ok) {
+            const size_t lane = lanes.size();
+            col[0 * n + lane] = hits[i];
+            col[1 * n + lane] = limit[i];
+            col[2 * n + lane] = duration[i];
+            col[3 * n + lane] = algorithm[i];
+            col[4 * n + lane] = behavior[i];
+            arena.append(keys + lo, nl);
+            arena.push_back('_');
+            arena.append(keys + lo + nl, ul);
+            offsets.push_back(static_cast<int64_t>(arena.size()));
+            lanes.push_back(i);
+        } else {
+            leftover[n_left++] = i;
+        }
+    }
+    *n_leftover_out = n_left;
+    const int32_t n0 = static_cast<int32_t>(lanes.size());
+    if (n0 == 0) return 0;
+
+    std::vector<int32_t> slots(n0);
+    std::vector<uint8_t> fresh(n0);
+    const int64_t done = static_cast<KeyDir*>(kd)->lookup_batch(
+        arena.data(), offsets.data(), n0, slots.data(), fresh.data(),
+        inject, n_inject);
+    if (done != n0) return -2;
+
+    int64_t* const row_slot = packed;
+    for (int32_t i = 0; i < n0; ++i) row_slot[i] = slots[i];
+    for (int32_t i = n0; i < width; ++i) row_slot[i] = -1;
+    for (int f = 0; f < 5; ++f) {
+        std::memcpy(packed + (f + 1) * width, col.data() + f * n,
+                    static_cast<size_t>(n0) * sizeof(int64_t));
+    }
+    // rows 6/7 (gregorian) stay zero; row 8 = fresh flags
+    int64_t* const row_fresh = packed + 8 * width;
+    for (int32_t i = 0; i < n0; ++i) row_fresh[i] = fresh[i];
+    std::memcpy(lane_item, lanes.data(),
+                static_cast<size_t>(n0) * sizeof(int32_t));
+    return n0;
+}
+
+namespace {
+
+// Open-addressing probe over the caller-owned interned-config map
+// (i64[INTERN_HASH_SLOTS][2] of {pair_key + 1, id}; 0 = empty). The map
+// persists across calls so the serving loop's per-window cost is one
+// probe per lane, not a sort.
+constexpr int64_t INTERN_HASH_SLOTS = 1024;  // >= 4x INTERN_MAX_CFG fill
+constexpr int64_t INTERN_MAX_CFG = 256;      // ops/decide.py INTERN_MAX_CFG
+constexpr int64_t INTERN_HITS_MAX = (1 << 15) - 1;
+constexpr int64_t INTERN_I32_MAX = (1LL << 31) - 1;
+
+inline uint64_t intern_hash(uint64_t x) {  // splitmix64 finalizer
+    x += 0x9e3779b97f4a7c15ULL;
+    x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ULL;
+    x = (x ^ (x >> 27)) * 0x94d049bb133111ebULL;
+    return x ^ (x >> 31);
+}
+
+// Find-or-insert (pair -> id). Returns the id, or -1 when the table is
+// full (caller handles PREP_CFG_OVERFLOW).
+inline int64_t intern_cfg_id(int64_t pair, int64_t* cfg, int32_t* n_cfg,
+                             int64_t* cfg_hash) {
+    uint64_t h = intern_hash(static_cast<uint64_t>(pair));
+    for (;;) {
+        int64_t* slot = cfg_hash + 2 * (h & (INTERN_HASH_SLOTS - 1));
+        if (slot[0] == pair + 1) return slot[1];
+        if (slot[0] == 0) {
+            if (*n_cfg >= INTERN_MAX_CFG) return -1;
+            const int64_t id = (*n_cfg)++;
+            slot[0] = pair + 1;
+            slot[1] = id;
+            cfg[2 * id] = pair >> 31;
+            cfg[2 * id + 1] = pair & INTERN_I32_MAX;
+            return id;
+        }
+        ++h;
+    }
+}
+
+}  // namespace
+
+// Size contract for the caller-owned interned-config buffers: Python
+// allocates cfg/cfg_hash from THESE getters so the sizes cannot drift
+// from the compile-time constants the probe loop masks with.
+int64_t keydir_intern_max_cfg() { return INTERN_MAX_CFG; }
+int64_t keydir_intern_hash_slots() { return INTERN_HASH_SLOTS; }
+
+// Interned columnar prep: keydir_prep_pack_columnar's contract, but the
+// staging output is the INTERNED wire format (ops/decide.py "interned"):
+// iw i32[2, width] — row 0 = slot (pad -1), row 1 = hits | algo<<15 |
+// behavior<<16 | fresh<<22 | cfgid<<23 — 8 bytes/decision on the wire,
+// with the (limit, duration) pairs interned into a persistent caller-
+// owned config table shipped to the device separately. cfg is i64[256][2]
+// row-major; n_cfg its in/out fill count; cfg_hash a caller-ZEROED
+// i64[1024][2] map that persists across calls (find-or-insert per lane).
+//
+// Lanes the interned format cannot carry — hits outside [0, 2^15),
+// limit/duration outside [0, 2^31), behavior bits past the 6-bit meta
+// field — demote to `leftover` exactly like slow-mask lanes (the
+// request-object pipeline decides them through the wide format).
+// Returns n0 >= 0, PREP_FALLBACK, PREP_OVERCOMMIT, or PREP_CFG_OVERFLOW
+// (-3): the window needs more than 256 distinct (limit, duration) pairs —
+// cfg/n_cfg/cfg_hash roll back to their entry state and the caller
+// re-preps the same window through the wide columnar path. iw is written
+// for every lane (meta 0 on padding), so callers need not re-zero reused
+// buffers.
+int32_t keydir_prep_pack_interned(
+    void* kd, int32_t n, const char* keys, const int32_t* key_off,
+    const int32_t* name_len, const int64_t* hits, const int64_t* limit,
+    const int64_t* duration, const int32_t* algorithm,
+    const int32_t* behavior, int64_t slow_mask, int32_t* iw, int32_t width,
+    int64_t* cfg, int32_t* n_cfg, int64_t* cfg_hash, int32_t* lane_item,
+    int32_t* leftover, int32_t* n_leftover_out, int64_t* inject,
+    int32_t* n_inject) {
+    if (n <= 0 || n > width) return -1;
+
+    const int32_t n_cfg_entry = *n_cfg;
+    std::string arena;
+    std::vector<int64_t> offsets;
+    std::vector<int32_t> lanes;
+    std::vector<int32_t> meta;  // meta word sans fresh bit
+    FpSet seen(n);  // fingerprint dedup: no per-key string allocation
+    offsets.reserve(n + 1);
+    offsets.push_back(0);
+    lanes.reserve(n);
+    meta.reserve(n);
+    arena.reserve(static_cast<size_t>(key_off[n] - key_off[0]) + n);
+    int32_t n_left = 0;
+    bool overflow = false;
+    for (int32_t i = 0; i < n; ++i) {
+        const int32_t lo = key_off[i], hi = key_off[i + 1];
+        const int32_t nl = name_len[i], ul = hi - lo - nl;
+        const bool keyok = nl > 0 && ul > 0 &&
+                           key_bytes_ok(keys + lo, nl) &&
+                           key_bytes_ok(keys + lo + nl, ul);
+        bool ok = keyok && (behavior[i] & slow_mask) == 0 &&
+                  hits[i] >= 0 && hits[i] <= INTERN_HITS_MAX &&
+                  limit[i] >= 0 && limit[i] <= INTERN_I32_MAX &&
+                  duration[i] >= 0 && duration[i] <= INTERN_I32_MAX &&
+                  (behavior[i] & ~0x3F) == 0 && (algorithm[i] & ~1) == 0;
+        if (keyok) {
+            const bool first = seen.insert(lane_fp(keys, lo, nl, ul));
+            ok = ok && first;  // later occurrences also demote
+        }
+        if (ok) {
+            const int64_t pair = (limit[i] << 31) | duration[i];
+            const int64_t id = intern_cfg_id(pair, cfg, n_cfg, cfg_hash);
+            if (id < 0) {
+                overflow = true;
+                break;
+            }
+            meta.push_back(static_cast<int32_t>(
+                hits[i] | (static_cast<int64_t>(algorithm[i] & 1) << 15) |
+                (static_cast<int64_t>(behavior[i] & 0x3F) << 16) |
+                (id << 23)));
+            arena.append(keys + lo, nl);
+            arena.push_back('_');
+            arena.append(keys + lo + nl, ul);
+            offsets.push_back(static_cast<int64_t>(arena.size()));
+            lanes.push_back(i);
+        } else {
+            leftover[n_left++] = i;
+        }
+    }
+    if (overflow) {
+        // roll the config state back to entry and rebuild the map from
+        // the surviving table (rare: once per deployment config churn)
+        *n_cfg = n_cfg_entry;
+        std::memset(cfg_hash, 0,
+                    static_cast<size_t>(INTERN_HASH_SLOTS) * 2 *
+                        sizeof(int64_t));
+        for (int64_t id = 0; id < n_cfg_entry; ++id) {
+            const int64_t pair = (cfg[2 * id] << 31) | cfg[2 * id + 1];
+            uint64_t h = intern_hash(static_cast<uint64_t>(pair));
+            for (;;) {
+                int64_t* slot = cfg_hash + 2 * (h & (INTERN_HASH_SLOTS - 1));
+                if (slot[0] == 0) {
+                    slot[0] = pair + 1;
+                    slot[1] = id;
+                    break;
+                }
+                ++h;
+            }
+        }
+        return -3;
+    }
+    *n_leftover_out = n_left;
+    const int32_t n0 = static_cast<int32_t>(lanes.size());
+    int32_t* const row_slot = iw;
+    int32_t* const row_meta = iw + width;
+    if (n0 == 0) {
+        for (int32_t i = 0; i < width; ++i) row_slot[i] = -1;
+        std::memset(row_meta, 0, static_cast<size_t>(width) * sizeof(int32_t));
+        return 0;
+    }
+
+    std::vector<int32_t> slots(n0);
+    std::vector<uint8_t> fresh(n0);
+    const int64_t done = static_cast<KeyDir*>(kd)->lookup_batch(
+        arena.data(), offsets.data(), n0, slots.data(), fresh.data(),
+        inject, n_inject);
+    if (done != n0) return -2;
+
+    for (int32_t i = 0; i < n0; ++i) {
+        row_slot[i] = slots[i];
+        row_meta[i] = meta[i] | (fresh[i] ? (1 << 22) : 0);
+    }
+    for (int32_t i = n0; i < width; ++i) {
+        row_slot[i] = -1;
+        row_meta[i] = 0;
+    }
+    std::memcpy(lane_item, lanes.data(),
+                static_cast<size_t>(n0) * sizeof(int32_t));
+    return n0;
+}
+
+
+namespace {
+
+// Lean-lane config interning: the table absorbs the full
+// (limit, duration, algorithm, behavior) tuple so the wire carries only a
+// 7-bit id (ops/decide.py "lean": 128 tuples, i64[128][4] rows). The hash
+// map stores id + 1 per slot (0 = empty) and compares the full tuple
+// against the cfg row on probe — open addressing with the table itself as
+// the key store, so no packing of the 69-bit tuple into one word.
+constexpr int64_t LEAN_HASH_SLOTS = 512;  // 4x LEAN_MAX_CFG fill
+constexpr int64_t LEAN_MAX_CFG = 128;     // ops/decide.py LEAN_MAX_CFG
+constexpr int32_t LEAN_SLOT_MASK = (1 << 24) - 1;
+constexpr int32_t LEAN_FRESH_SHIFT = 24;
+constexpr int32_t LEAN_CFG_SHIFT = 25;
+
+inline uint64_t lean_cfg_hash(int64_t limit, int64_t duration, int64_t algo,
+                              int64_t behavior) {
+    return intern_hash(
+        static_cast<uint64_t>((limit << 31) | duration) ^
+        (static_cast<uint64_t>(algo | (behavior << 1)) << 57));
+}
+
+inline int64_t lean_cfg_id(int64_t limit, int64_t duration, int64_t algo,
+                           int64_t behavior, int64_t* cfg, int32_t* n_cfg,
+                           int32_t* cfg_hash) {
+    uint64_t h = lean_cfg_hash(limit, duration, algo, behavior);
+    for (;;) {
+        int32_t* slot = cfg_hash + (h & (LEAN_HASH_SLOTS - 1));
+        const int32_t v = *slot;
+        if (v == 0) {
+            if (*n_cfg >= LEAN_MAX_CFG) return -1;
+            const int64_t id = (*n_cfg)++;
+            *slot = static_cast<int32_t>(id) + 1;
+            cfg[4 * id] = limit;
+            cfg[4 * id + 1] = duration;
+            cfg[4 * id + 2] = algo;
+            cfg[4 * id + 3] = behavior;
+            return id;
+        }
+        const int64_t id = v - 1;
+        if (cfg[4 * id] == limit && cfg[4 * id + 1] == duration &&
+            cfg[4 * id + 2] == algo && cfg[4 * id + 3] == behavior) {
+            return id;
+        }
+        ++h;
+    }
+}
+
+}  // namespace
+
+int64_t keydir_lean_max_cfg() { return LEAN_MAX_CFG; }
+int64_t keydir_lean_hash_slots() { return LEAN_HASH_SLOTS; }
+
+// Lean columnar prep: keydir_prep_pack_interned's contract, but the
+// staging output is the LEAN wire format (ops/decide.py "lean"):
+// iw i32[width] — ONE word per lane: [23:0] slot (0xFFFFFF = padding) |
+// [24] fresh | [31:25] config id — 4 bytes/decision on the wire, hits = 1
+// implied, with (limit, duration, algorithm, behavior) interned into the
+// caller-owned i64[128][4] cfg table (cfg_hash here is i32[512] of id+1,
+// caller-zeroed, persists across calls).
+//
+// Lanes the lean format cannot carry — hits != 1, limit/duration outside
+// [0, 2^31), behavior past the 6-bit field, gregorian via slow_mask —
+// demote to `leftover` like slow-mask lanes. A directory whose capacity
+// exceeds the 24-bit lane field (ops/decide.py lean_capacity_ok) returns
+// PREP_SLOT_WIDE (-4) at ENTRY, before any lookup commits inserts/LRU
+// motion/inject rows — callers re-prep interned/compact/wide.
+// Returns n0 >= 0, PREP_FALLBACK, PREP_OVERCOMMIT, PREP_CFG_OVERFLOW (-3,
+// config state rolled back to entry — caller re-preps interned/wide), or
+// PREP_SLOT_WIDE (-4).
+int32_t keydir_prep_pack_lean(
+    void* kd, int32_t n, const char* keys, const int32_t* key_off,
+    const int32_t* name_len, const int64_t* hits, const int64_t* limit,
+    const int64_t* duration, const int32_t* algorithm,
+    const int32_t* behavior, int64_t slow_mask, int32_t* iw, int32_t width,
+    int64_t* cfg, int32_t* n_cfg, int32_t* cfg_hash, int32_t* lane_item,
+    int32_t* leftover, int32_t* n_leftover_out, int64_t* inject,
+    int32_t* n_inject) {
+    if (n <= 0 || n > width) return -1;
+    // Capacity gate BEFORE any work commits: a directory wider than the
+    // 24-bit lane field can hand out unencodable slots, and detecting
+    // that only after lookup_batch has committed inserts/LRU motion/
+    // inject rows would leave the caller holding side effects it cannot
+    // express (the old post-lookup -4). Slots are always < capacity, so
+    // capacity <= LEAN_SLOT_MASK makes the late check unreachable.
+    if (static_cast<KeyDir*>(kd)->capacity() > LEAN_SLOT_MASK) return -4;
+
+    const int32_t n_cfg_entry = *n_cfg;
+    std::string arena;
+    std::vector<int64_t> offsets;
+    std::vector<int32_t> lanes;
+    std::vector<int32_t> word;  // lane word sans fresh bit
+    FpSet seen(n);  // fingerprint dedup: no per-key string allocation
+    offsets.reserve(n + 1);
+    offsets.push_back(0);
+    lanes.reserve(n);
+    word.reserve(n);
+    arena.reserve(static_cast<size_t>(key_off[n] - key_off[0]) + n);
+    int32_t n_left = 0;
+    bool overflow = false;
+    for (int32_t i = 0; i < n; ++i) {
+        const int32_t lo = key_off[i], hi = key_off[i + 1];
+        const int32_t nl = name_len[i], ul = hi - lo - nl;
+        const bool keyok = nl > 0 && ul > 0 &&
+                           key_bytes_ok(keys + lo, nl) &&
+                           key_bytes_ok(keys + lo + nl, ul);
+        bool ok = keyok && (behavior[i] & slow_mask) == 0 && hits[i] == 1 &&
+                  limit[i] >= 0 && limit[i] <= INTERN_I32_MAX &&
+                  duration[i] >= 0 && duration[i] <= INTERN_I32_MAX &&
+                  (behavior[i] & ~0x3F) == 0 && (algorithm[i] & ~1) == 0;
+        if (keyok) {
+            const bool first = seen.insert(lane_fp(keys, lo, nl, ul));
+            ok = ok && first;  // later occurrences (or a fp collision,
+            // ~1e-12/window) demote to the request-object pipeline
+        }
+        if (ok) {
+            const int64_t id =
+                lean_cfg_id(limit[i], duration[i], algorithm[i],
+                            behavior[i], cfg, n_cfg, cfg_hash);
+            if (id < 0) {
+                overflow = true;
+                break;
+            }
+            word.push_back(static_cast<int32_t>(id << LEAN_CFG_SHIFT));
+            arena.append(keys + lo, nl);
+            arena.push_back('_');
+            arena.append(keys + lo + nl, ul);
+            offsets.push_back(static_cast<int64_t>(arena.size()));
+            lanes.push_back(i);
+        } else {
+            leftover[n_left++] = i;
+        }
+    }
+    if (overflow) {
+        // roll the config state back to entry; the hash map rebuilds from
+        // the surviving table (rare: once per deployment config churn)
+        *n_cfg = n_cfg_entry;
+        std::memset(cfg_hash, 0,
+                    static_cast<size_t>(LEAN_HASH_SLOTS) * sizeof(int32_t));
+        for (int64_t id = 0; id < n_cfg_entry; ++id) {
+            uint64_t h = lean_cfg_hash(cfg[4 * id], cfg[4 * id + 1],
+                                       cfg[4 * id + 2], cfg[4 * id + 3]);
+            for (;;) {
+                int32_t* slot = cfg_hash + (h & (LEAN_HASH_SLOTS - 1));
+                if (*slot == 0) {
+                    *slot = static_cast<int32_t>(id) + 1;
+                    break;
+                }
+                ++h;
+            }
+        }
+        return -3;
+    }
+    *n_leftover_out = n_left;
+    const int32_t n0 = static_cast<int32_t>(lanes.size());
+    if (n0 == 0) {
+        for (int32_t i = 0; i < width; ++i) iw[i] = LEAN_SLOT_MASK;
+        return 0;
+    }
+
+    std::vector<int32_t> slots(n0);
+    std::vector<uint8_t> fresh(n0);
+    const int64_t done = static_cast<KeyDir*>(kd)->lookup_batch(
+        arena.data(), offsets.data(), n0, slots.data(), fresh.data(),
+        inject, n_inject);
+    if (done != n0) return -2;
+
+    for (int32_t i = 0; i < n0; ++i) {
+        // unreachable: the entry gate bounds capacity (and so every slot)
+        // below LEAN_SLOT_MASK. Kept as a cheap invariant check; if it
+        // ever fired, the lookup above already committed inserts/LRU
+        // motion, and the caller MUST still apply the returned inject
+        // rows (the ctypes wrapper hands them back on every n0 < 0).
+        if (slots[i] >= LEAN_SLOT_MASK) return -4;
+        iw[i] = slots[i] | word[i] |
+                (fresh[i] ? (1 << LEAN_FRESH_SHIFT) : 0);
+    }
+    for (int32_t i = n0; i < width; ++i) iw[i] = LEAN_SLOT_MASK;
+    std::memcpy(lane_item, lanes.data(),
+                static_cast<size_t>(n0) * sizeof(int32_t));
+    return n0;
+}
+
+
+namespace {
+
+// Owner-routed lane accumulator + drain shared by the two sharded preps:
+// per-owner directory lookup and the owner-major staging emit (the decide
+// staging row-order contract — slot / 5 request cols / gregorian zeros /
+// fresh — lives HERE only). Returns total lanes, or -2 on over-commit.
+struct OwnerLanes {
+    std::string arena;
+    std::vector<int64_t> offsets{0};
+    std::vector<int32_t> item;
+    std::vector<int64_t> col5;  // 5 values per lane
+};
+
+int32_t drain_owner_lanes(void** kds, int32_t n_owners,
+                          std::vector<OwnerLanes>& owners, int32_t n,
+                          int64_t* cols, int32_t* lane_item,
+                          int32_t* owner_count) {
+    int64_t pos = 0;
+    for (int32_t o = 0; o < n_owners; ++o) {
+        OwnerLanes& ol = owners[o];
+        const int32_t cnt = static_cast<int32_t>(ol.item.size());
+        owner_count[o] = cnt;
+        if (cnt == 0) continue;
+        std::vector<int32_t> slots(cnt);
+        std::vector<uint8_t> fresh(cnt);
+        const int64_t done = static_cast<KeyDir*>(kds[o])->lookup_batch(
+            ol.arena.data(), ol.offsets.data(), cnt, slots.data(),
+            fresh.data());
+        if (done != cnt) return -2;
+        for (int32_t j = 0; j < cnt; ++j) {
+            const int64_t lane = pos + j;
+            cols[0 * n + lane] = slots[j];
+            for (int f = 0; f < 5; ++f) {
+                cols[(f + 1) * n + lane] = ol.col5[5 * j + f];
+            }
+            // rows 6/7 (gregorian) stay zero
+            cols[8 * n + lane] = fresh[j];
+            lane_item[lane] = ol.item[j];
+        }
+        pos += cnt;
+    }
+    return static_cast<int32_t>(pos);
+}
+
+}  // namespace
+
+// Columnar sharded prep: keydir_prep_route_sharded's contract with the
+// COLUMNAR input of keydir_prep_pack_columnar (the peerlink wire layout)
+// — pure C, no CPython API, callable with the GIL released. Output lanes
+// are owner-major in `cols` (i64[9, n], decide staging row order) with
+// owner_count[o] lanes per owner; leftover/UTF-8/slow-mask semantics
+// match the columnar single-table prep.
+int32_t keydir_prep_route_columnar(
+    void** kds, int32_t n_owners, int32_t n, const char* keys,
+    const int32_t* key_off, const int32_t* name_len, const int64_t* hits,
+    const int64_t* limit, const int64_t* duration,
+    const int32_t* algorithm, const int32_t* behavior, int64_t slow_mask,
+    int64_t* cols, int32_t* lane_item, int32_t* owner_count,
+    int32_t* leftover, int32_t* n_leftover_out) {
+    if (n <= 0) return -1;
+
+    std::vector<OwnerLanes> owners(n_owners);
+    std::unordered_set<std::string> seen;
+    seen.reserve(n);
+    std::string key;
+    int32_t n_left = 0;
+    for (int32_t i = 0; i < n; ++i) {
+        const int32_t lo = key_off[i], hi = key_off[i + 1];
+        const int32_t nl = name_len[i], ul = hi - lo - nl;
+        bool ok = nl > 0 && ul > 0 && (behavior[i] & slow_mask) == 0 &&
+                  key_bytes_ok(keys + lo, nl) &&
+                  key_bytes_ok(keys + lo + nl, ul);
+        if (nl > 0 && ul > 0) {
+            key.assign(keys + lo, nl);
+            key.push_back('_');
+            key.append(keys + lo + nl, ul);
+            if (ok) {
+                ok = seen.insert(key).second;
+            } else {
+                seen.insert(key);  // later occurrences also demote
+            }
+        }
+        if (!ok) {
+            leftover[n_left++] = i;
+            continue;
+        }
+        const uint64_t h =
+            fnv1a(key.data(), static_cast<int32_t>(key.size()));
+        OwnerLanes& ol = owners[h % static_cast<uint64_t>(n_owners)];
+        ol.arena += key;
+        ol.offsets.push_back(static_cast<int64_t>(ol.arena.size()));
+        ol.item.push_back(i);
+        ol.col5.push_back(hits[i]);
+        ol.col5.push_back(limit[i]);
+        ol.col5.push_back(duration[i]);
+        ol.col5.push_back(algorithm[i]);
+        ol.col5.push_back(behavior[i]);
+    }
+    *n_leftover_out = n_left;
+    return drain_owner_lanes(kds, n_owners, owners, n, cols, lane_item,
+                             owner_count);
+}
+
+// Sharded variant of keydir_prep_pack_fast: one pass that ALSO routes each
+// lane to its owner shard (owner = fnv1a64(key) % n_owners, the
+// parallel/mesh.py shard_of_key contract) and looks the key up in that
+// owner's directory. Output lanes are owner-major and contiguous —
+// owner_count[o] lanes per owner, `cols` is i64[9, n] in the decide staging
+// row order (slot/hits/limit/duration/algo/behavior/0/0/fresh) — so the
+// python side turns them into the [R,S,9,w] mesh buffer with one numpy
+// slice copy per owner. Leftover semantics match keydir_prep_pack_fast.
+//
+// kds: n_owners KeyDir handles (one per owner shard). Returns n0 total
+// lanes, PREP_FALLBACK, or PREP_OVERCOMMIT. GIL must be held.
+int32_t keydir_prep_route_sharded(void** kds, int32_t n_owners,
+                                  PyObject* items, int64_t greg_mask,
+                                  int64_t* cols, int32_t* lane_item,
+                                  int32_t* owner_count, int32_t* leftover,
+                                  int32_t* n_leftover_out) {
+    PyObject* seq = PySequence_Fast(items, "prep_route expects a sequence");
+    if (seq == nullptr) {
+        PyErr_Clear();
+        return -1;
+    }
+    const Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    if (n == 0) {
+        Py_DECREF(seq);
+        return -1;
+    }
+
+    std::vector<OwnerLanes> owners(n_owners);
+    std::unordered_set<std::string> seen;  // same per-key order rule as
+    seen.reserve(n);                       // keydir_prep_pack_fast
+    int32_t n_left = 0;
+    for (Py_ssize_t i = 0; i < n; ++i) {
+        ParsedItem p = parse_item(PySequence_Fast_GET_ITEM(seq, i), greg_mask);
+        const bool first = !p.key.empty() && seen.insert(p.key).second;
+        if (!(p.ok && first)) {
+            leftover[n_left++] = static_cast<int32_t>(i);
+            continue;
+        }
+        const uint64_t h =
+            fnv1a(p.key.data(), static_cast<int32_t>(p.key.size()));
+        OwnerLanes& ol = owners[h % static_cast<uint64_t>(n_owners)];
+        ol.arena += p.key;
+        ol.offsets.push_back(static_cast<int64_t>(ol.arena.size()));
+        ol.item.push_back(static_cast<int32_t>(i));
+        for (int f = 0; f < 5; ++f) ol.col5.push_back(p.vals[f]);
+    }
+    Py_DECREF(seq);
+    *n_leftover_out = n_left;
+    return drain_owner_lanes(kds, n_owners, owners,
+                             static_cast<int32_t>(n), cols, lane_item,
+                             owner_count);
+}
+
+}  // extern "C"

@@ -32,6 +32,14 @@ class Behavior(enum.IntFlag):
     MULTI_REGION = 16
 
 
+# Behaviors the native lone-request path (Engine.decide_native_single) hands
+# to the request-object pipeline: gregorian needs host calendar math; GLOBAL
+# and MULTI_REGION peel off to the host managers before the backend sees them.
+SLOW_PATH_BEHAVIOR_MASK = (int(Behavior.DURATION_IS_GREGORIAN)
+                           | int(Behavior.GLOBAL)
+                           | int(Behavior.MULTI_REGION))
+
+
 class Status(enum.IntEnum):
     """Rate limit decision (reference: proto/gubernator.proto:161-164)."""
 

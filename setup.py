@@ -11,7 +11,7 @@ setup(
                                     "gubernator_tpu_torch",
                                     "gubernator_tpu_torch.*"]),
     package_data={"gubernator_tpu.native": ["*.cpp"],
-                  "gubernator_tpu_torch": ["csrc/*.cu"]},
+                  "gubernator_tpu_torch": ["csrc/*.cu", "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

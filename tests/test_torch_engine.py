@@ -2,11 +2,15 @@
 
 Both engines take one seeded request stream, batch by batch at the same
 now_ms, and must give equal responses (status, limit, remaining, reset,
-error) and equal whole tables. The JAX engine is built with
-GUBER_NO_NATIVE=1, so both use the same pure-Python KeyDirectory and assign
-the same slots. The stream covers duplicate keys across rounds, the scan
-tail, expiry as now_ms advances, error strings, gregorian durations, every
-staging format, and slot recycling once the directory is full.
+error), equal whole tables and equal EngineStats counters. Each case runs
+twice: on the native directories (keydir.cpp, the same C++ in both
+packages, so the same slots; windows of at most max_width requests take the
+one-pass fast window) and on the pure-Python KeyDirectory
+(GUBER_NO_NATIVE=1). The stream covers duplicate keys across rounds, the
+scan tail, expiry as now_ms advances, error strings, gregorian durations,
+every staging format, and slot recycling once the directory is full. A lone
+request case interleaves seed_mirror and decide_native_single with the
+windows, so dirty mirrors are injected by the next window's lookup.
 """
 
 import numpy as np
@@ -14,7 +18,7 @@ import pytest
 import torch
 
 from gubernator_tpu_torch import convert
-from gubernator_tpu_torch.models.engine import Engine, _gather_rows, _inject_rows
+from gubernator_tpu_torch.models.engine import Engine, _gather_rows
 from gubernator_tpu_torch.types import Behavior, RateLimitReq
 
 NOW = 1_700_000_000_000
@@ -73,27 +77,48 @@ def request_stream(seed, n_keys, n_batches, max_batch):
     return out
 
 
-def _jax_engine(monkeypatch, **kw):
-    monkeypatch.setenv("GUBER_NO_NATIVE", "1")
+def _engines(monkeypatch, directory, **kw):
+    """(JAX engine, port engine) on the same kind of directory."""
+    if directory == "python":
+        monkeypatch.setenv("GUBER_NO_NATIVE", "1")
+    else:
+        monkeypatch.delenv("GUBER_NO_NATIVE", raising=False)
     from gubernator_tpu.models.engine import Engine as JaxEngine
 
-    return JaxEngine(**kw)
+    jeng = JaxEngine(**kw)
+    teng = Engine(device="cpu", **kw)
+    assert (teng._prep_fast is not None) == (directory == "native")
+    assert (jeng._prep_fast is not None) == (directory == "native")
+    return jeng, teng
 
 
 def _resp_tuple(r):
     return (int(r.status), r.limit, r.remaining, r.reset_time, r.error)
 
 
+COUNTERS = ("requests", "batches", "rounds", "over_limit", "errors",
+            "native_singles")
+
+
+def _assert_same_end_state(jeng, teng):
+    np.testing.assert_array_equal(np.asarray(jeng.state),
+                                  convert.table_to_numpy(teng.state))
+    assert teng.key_count() == jeng.key_count()
+    assert ({c: getattr(teng.stats, c) for c in COUNTERS}
+            == {c: getattr(jeng.stats, c) for c in COUNTERS})
+    assert set(teng.stats.stage_ns) == set(jeng.stats.stage_ns)
+
+
+@pytest.mark.parametrize("directory", ["native", "python"])
 @pytest.mark.parametrize("capacity,n_keys,staging", [
     (4096, 300, "auto"),   # roomy table: rounds, scan tail, every format
     (40, 120, "auto"),     # full directory: LRU slot recycling
     (4096, 300, "wide"),   # the wide-only pin
 ])
-def test_engine_matches_jax(monkeypatch, capacity, n_keys, staging):
+def test_engine_matches_jax(monkeypatch, capacity, n_keys, staging, directory):
     monkeypatch.setenv("GUBER_STAGING", staging)
-    kw = dict(capacity=capacity, min_width=8, max_width=32)
-    jeng = _jax_engine(monkeypatch, **kw)
-    teng = Engine(device="cpu", **kw)
+    jeng, teng = _engines(monkeypatch, directory, capacity=capacity,
+                          min_width=8, max_width=32)
     assert teng.state.device.type == "cpu"
     from gubernator_tpu import RateLimitReq as JReq
 
@@ -101,11 +126,77 @@ def test_engine_matches_jax(monkeypatch, capacity, n_keys, staging):
         want = jeng.get_rate_limits([JReq(**f) for f in batch], now_ms=now)
         got = teng.get_rate_limits([RateLimitReq(**f) for f in batch], now_ms=now)
         assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
-    np.testing.assert_array_equal(np.asarray(jeng.state),
-                                  convert.table_to_numpy(teng.state))
-    assert teng.key_count() == jeng.key_count()
+    _assert_same_end_state(jeng, teng)
     if capacity < n_keys:
         assert teng.directory.evictions > 0
+
+
+def _lone_requests(batch, n_hot):
+    """The fields of the n_hot most frequent valid keys of a batch, each as
+    a plain (non-gregorian) request of hits 1."""
+    counts = {}
+    for f in batch:
+        if f["name"] and f["unique_key"]:
+            counts.setdefault(f["unique_key"], [0, f])[0] += 1
+    hot = sorted(counts.values(), key=lambda c: (-c[0], c[1]["unique_key"]))
+    out = []
+    for _n, f in hot[:n_hot]:
+        lone = dict(f, hits=1)
+        if lone["behavior"] & GREG:
+            lone.update(behavior=0, duration=60_000)
+        out.append(lone)
+    return out
+
+
+@pytest.mark.parametrize("directory", ["native", "python"])
+@pytest.mark.parametrize("capacity,n_keys", [(4096, 300), (40, 120)])
+def test_lone_requests_match_jax(monkeypatch, capacity, n_keys, directory):
+    """After every window, for its hottest keys: seed_mirror, then three
+    decide_native_single calls, a miss going through get_rate_limits as a
+    one-request window (as the JAX package's caller does). Native decisions
+    dirty the mirrors; the next window's lookup injects them."""
+    jeng, teng = _engines(monkeypatch, directory, capacity=capacity,
+                          min_width=8, max_width=32)
+    from gubernator_tpu import RateLimitReq as JReq
+
+    seen = {"fast": 0, "inject_rows": 0}
+    fast, apply_inject = teng._fast_window, teng._apply_inject_rows
+
+    def counted_fast(*a):
+        seen["fast"] += 1
+        return fast(*a)
+
+    def counted_inject(inject):
+        seen["inject_rows"] += 0 if inject is None else len(inject)
+        return apply_inject(inject)
+
+    monkeypatch.setattr(teng, "_fast_window", counted_fast)
+    monkeypatch.setattr(teng, "_apply_inject_rows", counted_inject)
+    n_native = 0
+    for now, batch in request_stream(capacity + 1, n_keys, 25, 40):
+        want = jeng.get_rate_limits([JReq(**f) for f in batch], now_ms=now)
+        got = teng.get_rate_limits([RateLimitReq(**f) for f in batch], now_ms=now)
+        assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
+        for f in _lone_requests(batch, 4):
+            key = f["name"] + "_" + f["unique_key"]
+            assert teng.seed_mirror(key) == jeng.seed_mirror(key)
+            for j in range(3):
+                t = now + 1 + j
+                w1 = jeng.decide_native_single(JReq(**f), now_ms=t)
+                g1 = teng.decide_native_single(RateLimitReq(**f), now_ms=t)
+                assert (g1 is None) == (w1 is None)
+                if g1 is None:
+                    w1 = jeng.get_rate_limits([JReq(**f)], now_ms=t)[0]
+                    g1 = teng.get_rate_limits([RateLimitReq(**f)], now_ms=t)[0]
+                else:
+                    n_native += 1
+                assert _resp_tuple(g1) == _resp_tuple(w1)
+    _assert_same_end_state(jeng, teng)
+    if directory == "native":
+        assert seen["fast"] > 0 and seen["inject_rows"] > 0 and n_native > 0
+        assert teng.stats.native_singles == n_native
+    else:
+        assert seen["fast"] == 0 and n_native == 0
 
 
 def test_stream_reaches_every_path(monkeypatch):
@@ -138,25 +229,36 @@ def test_warmup_leaves_table_untouched():
     assert torch.equal(before, teng.state)
 
 
-def test_inject_and_gather_match_jax():
-    """The row inject and gather (engine.py:74, :86 of the JAX package) as
-    plain tensor indexing: the same rows land, -1 lanes are dropped."""
+@pytest.mark.parametrize("part", ["inject", "gather"])
+def test_inject_and_gather_match_jax(monkeypatch, part):
+    """The row inject and gather (engine.py:74, :86 of the JAX package, the
+    inject fed through _apply_inject_rows :1123): the same rows land, slots
+    below 0 or at and past C are dropped, algo and status are truncated
+    through int32 ("inject"); a gather clamps its slots to [0, C-1]
+    ("gather")."""
     from gubernator_tpu.models import engine as jeng_mod
 
+    monkeypatch.setenv("GUBER_NO_NATIVE", "1")
     rng = np.random.RandomState(4)
     C = 32
     table = rng.randint(-5, 1000, (C, 8)).astype(np.int64)
-    slot = np.array([3, -1, 31, 0, -1, 7], np.int32)
-    cols = [rng.randint(0, 100, 6).astype(dt) for dt in
-            (np.int32,) + (np.int64,) * 5 + (np.int32,)]
+    jeng = jeng_mod.Engine(capacity=C, min_width=8, max_width=32)
+    teng = Engine(device="cpu", capacity=C, min_width=8, max_width=32)
     import jax.numpy as jnp
 
-    want = jeng_mod._inject_rows(jnp.asarray(table), jnp.asarray(slot),
-                                 *map(jnp.asarray, cols))
-    got = convert.table_to_torch(table, "cpu")
-    _inject_rows(got, torch.from_numpy(slot),
-                 *[torch.from_numpy(c) for c in cols])
-    np.testing.assert_array_equal(np.asarray(want), convert.to_numpy(got))
-    for w, g in zip(jeng_mod._gather_rows(want, jnp.asarray(slot)),
-                    _gather_rows(got, torch.from_numpy(slot))):
+    jeng.state = jnp.asarray(table)
+    teng.state = convert.table_to_torch(table, "cpu")
+    inject = rng.randint(0, 100, (8, 8)).astype(np.int64)
+    inject[:, 0] = [3, -1, 31, 0, 40, 7, C, 12]
+    inject[:, 1] = [0, 1, (1 << 33) + 1, -(1 << 40) + 3, 1, 0, 1, (1 << 31) + 7]
+    inject[:, 7] = [0, 1, (1 << 31) + 5, -(1 << 35) - 2, 0, 3, 0, -(1 << 31) - 1]
+    if part == "inject":
+        jeng._apply_inject_rows(inject)
+        teng._apply_inject_rows(inject)
+        np.testing.assert_array_equal(np.asarray(jeng.state),
+                                      convert.table_to_numpy(teng.state))
+        return
+    slot = np.array([3, -1, 31, 0, -1, 7, C, 40, 12], np.int32)
+    for w, g in zip(jeng_mod._gather_rows(jeng.state, jnp.asarray(slot)),
+                    _gather_rows(teng.state, torch.from_numpy(slot))):
         np.testing.assert_array_equal(np.asarray(w), convert.to_numpy(g))
