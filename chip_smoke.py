@@ -18,23 +18,34 @@ Run from the root of the repository. Phases, each fatal on failure:
    directory after warmup() takes --windows client batches of 8192
    requests over 1,000,000 Zipf(1.1) keys through the one-pass fast
    window; after each window the 16 hottest keys go through seed_mirror
-   (the gather kernel) and three decide_native_single calls each (a miss
-   becomes a one-request window), so the next window's lookups inject the
-   dirty mirrors (the inject kernel). Engine(device="cpu") takes the same
-   sequence; responses, lone responses, tables and EngineStats counters
-   must be equal. Prints decisions/s and the stage split;
+   (the gather kernel in its pinned form) and three decide_native_single
+   calls each (a miss becomes a one-request window), so the next window's
+   lookups inject the dirty mirrors (the inject kernel). Engine(device=
+   "cpu") takes the same sequence; responses, lone responses, tables and
+   EngineStats counters must be equal. Prints decisions/s, the stage split
+   and seed_mirror's time per call; then the host-stage split of
+   seed_mirror over 10,000 calls;
 3b. the same engines on the python directory (GUBER_NO_NATIVE=1), 20
    windows, no lone requests;
 4. the GLOBAL sync: the ring kernel against its plain version at
-   L in {G, 4G}, then sync steps over S = 8 shards of 1,250,000 rows with
+   L in {G, 4G}, timed; the raw stream handle of the shared launch path
+   held equal to torch.cuda.current_stream's, on the default stream and a
+   side stream; the host-stage split of the ring wrapper over 10,000
+   calls; then sync steps over S = 8 shards of 1,250,000 rows with
    G = 1024 global keys, collectives="ring" on the card against "psum" on
    the CPU; mirrors and shard tables must be equal;
 5. the row kernels against their plain versions on the card: inject at
    m in {1, 16, 64, 4096} and gather at m in {1, 64, 8192} on a populated
-   10,000,001-row table (dropped, clamped and int32-overflowing lanes), and
+   10,000,001-row table (dropped, clamped and int32-overflowing lanes); the
+   gather's pinned form at m in {1, 64} with the slots -1, C and C + 8;
    row_bump on an int32[10,000,000, 128] table (5.12 GB) against the plain
    version on a clone; then the probe's own loop
    (gubernator_tpu_torch.bench_rows).
+
+Device times come from torch.profiler, for the kernels and for each
+library call they are compared with; where the profiler gives none the
+record holds null, never a host-clock time. Every line with a time ends
+with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
 3b, 4 and the bench_rows loop) and read just after; every kernel must have
@@ -58,7 +69,7 @@ import torch
 
 from gubernator_tpu_torch import bench_rows
 from gubernator_tpu_torch.models.engine import Engine
-from gubernator_tpu_torch.ops import _build, decide as dk, ring as rk, rows as rowk
+from gubernator_tpu_torch.ops import _build, _launch, decide as dk, ring as rk, rows as rowk
 from gubernator_tpu_torch.parallel import MeshPlan, make_global_sync, make_sharded_table, shard_of_key
 from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, _psum
 from gubernator_tpu_torch.types import Behavior, RateLimitReq
@@ -72,6 +83,7 @@ LONE_KEYS = 16  # hottest keys of each window sent as lone requests
 PYTHON_DIR_WINDOWS = 20  # phase 3b
 INJECT_M = (1, 16, 64, 4096)  # phase 3 injects at most LONE_KEYS rows
 GATHER_M = (1, 64, 8192)  # phase 3 gathers 1 slot per seed_mirror
+PINNED_M = (1, 64)  # the pinned form: the lone path's 1 slot, and 64
 GLOBAL_SHARDS, GLOBAL_ROWS, GLOBAL_KEYS = 8, 1_250_000, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Peak scalar rate used for integer work: the card's 67 TFLOP/s of float32
@@ -104,8 +116,22 @@ SOURCES = {"decide_wide": "gubernator_tpu_torch/csrc/decide.cu",
 ROW_MAIN_M = {"inject_rows": LONE_KEYS, "gather_rows": 1}
 
 
+SMI = "card not read yet"  # main() sets it: nvidia-smi's name, power limit
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def tlog(*a):
+    """log() for a line that carries a time: the card and its power limit
+    go with it, as nvidia-smi gives them."""
+    log(*a, f"[{SMI}]")
+
+
+def fms(v, digits=5):
+    """A device time for the log: null where the profiler gave none."""
+    return "null" if v is None else f"{v:.{digits}f}"
 
 
 def check(cond, msg):
@@ -131,9 +157,13 @@ def event_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def profiled_kernel_ms(fn, iters, kernel_substr):
-    """Mean device time of the named CUDA kernel per launch, from
-    torch.profiler; None when the trace shows no device time for it."""
+def profiled_ms(fn, iters, kernel_substr=None):
+    """Mean device milliseconds from torch.profiler over `iters` calls: per
+    launch of the kernels whose name holds `kernel_substr`, or, when it is
+    None, per call of everything the call ran on the device (kernels and
+    copies: a library call's device time). None, logged, when the profiler
+    fails or its trace shows no device time: the caller records null, never
+    a host-clock time in its place."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -142,15 +172,31 @@ def profiled_kernel_ms(fn, iters, kernel_substr):
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-    except RuntimeError as e:  # a trace is extra detail; the timing above stands
-        log(f"  profiler unavailable: {e}")
+    except RuntimeError as e:
+        log(f"  profiler failed ({e}): device ms recorded as null")
         return None
     total_us, count = 0.0, 0
     for e in prof.key_averages():
-        if kernel_substr in e.key:
-            total_us += e.device_time_total
+        if kernel_substr is None or kernel_substr in e.key:
+            total_us += e.self_device_time_total
             count += e.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    if kernel_substr is None:
+        count = iters
+    if not count or total_us <= 0:
+        log(f"  the trace shows no device time for {kernel_substr or 'the call'}: "
+            "device ms recorded as null")
+        return None
+    return total_us / count / 1e3
+
+
+def host_us(fn, iters):
+    """Mean host-clock microseconds per call over `iters` calls, after one
+    warm call; for calls that end with their result on the host."""
+    fn(0)
+    t = time.perf_counter_ns()
+    for i in range(iters):
+        fn(i)
+    return (time.perf_counter_ns() - t) / iters / 1e3
 
 
 def bound_ms(n_bytes, n_ops):
@@ -280,8 +326,7 @@ def phase_decide(seed, dev, results):
             dk.decide_plain(f, plain, pk, cf, NOW, scan)
 
         call_ms = event_ms(run_k, 64)
-        dev_ms = profiled_kernel_ms(run_k, 32, "decide_kernel")
-        ms = dev_ms if dev_ms is not None else call_ms
+        ms = profiled_ms(run_k, 32, "decide_kernel")
         plain_ms = event_ms(run_p, 8)
         plain.copy_(kern)  # the timing runs mutated the two tables differently
         lanes = width * max(k, 1)
@@ -292,9 +337,9 @@ def phase_decide(seed, dev, results):
                    ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, bytes=n_bytes)
         results["decide_shapes"].append(rec)
-        log(f"  {fmt:7s} W={width:5d} K={k:2d}: bit-equal; kernel {ms:.5f} ms on the "
-            f"device, {call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms; "
-            f"bound {b_ms:.6f} ms ({b_by})")
+        tlog(f"  {fmt:7s} W={width:5d} K={k:2d}: bit-equal; kernel {fms(ms)} ms on the "
+             f"device, {call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms; "
+             f"bound {b_ms:.6f} ms ({b_by})")
     edge_cases(kern, plain, dev, errs)
     del kern, plain
     torch.cuda.empty_cache()
@@ -399,7 +444,8 @@ def drive_engines(gpu, cpu, batches, key_cfg, lone, spent):
     as a one-request window. Everything must be equal. Returns the
     measurements of the card engine."""
     m = dict(gpu_s=0.0, cpu_s=0.0, busy_us=0.0, traced_s=0.0, n_req=0, lone_s=0.0,
-             lone_calls=0, lone_native=0, lone_miss=0, seeded=0, seed_s=0.0)
+             lone_calls=0, lone_native=0, lone_miss=0, seeded=0, seed_s=0.0,
+             seed_calls=0)
     for i, (keys, batch) in enumerate(batches):
         now = NOW + i * 50
         trace = i < 2  # the first two windows also run under the profiler
@@ -431,6 +477,7 @@ def drive_engines(gpu, cpu, batches, key_cfg, lone, spent):
             t = time.perf_counter()
             seeded = gpu.seed_mirror(key)
             m["seed_s"] += time.perf_counter() - t
+            m["seed_calls"] += 1
             check(seeded == cpu.seed_mirror(key), f"window {i}: seed_mirror({key}) differs")
             m["seeded"] += seeded
             for j in range(3):
@@ -479,7 +526,7 @@ def phase_engine(seed, n_windows, dev, results):
         f"{LONE_KEYS} hottest keys of each window as lone requests")
     t = time.perf_counter()
     batches, key_cfg = request_stream(seed, n_windows)
-    log(f"  stream built in {time.perf_counter() - t:.1f} s")
+    tlog(f"  stream built in {time.perf_counter() - t:.1f} s")
     os.environ.pop("GUBER_NO_NATIVE", None)
     t = time.perf_counter()
     gpu = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
@@ -487,7 +534,7 @@ def phase_engine(seed, n_windows, dev, results):
     check(gpu._prep_fast is not None and cpu._prep_fast is not None,
           "the engines did not take the native fast window")
     gpu.warmup()
-    log(f"  engines built and warmed in {time.perf_counter() - t:.2f} s")
+    tlog(f"  engines built and warmed in {time.perf_counter() - t:.2f} s")
     # fast windows taken, their wall time, and the share of it in the
     # leftover tail (the python pipeline after round 0)
     fast = {"taken": 0, "s": 0.0, "tail_requests": 0, "tail_s": 0.0}
@@ -531,20 +578,29 @@ def phase_engine(seed, n_windows, dev, results):
         lone_per_s=m["lone_calls"] / m["lone_s"] if m["lone_s"] else None,
         launches_per_window={k: v / n_windows for k, v in launches.items()},
         keys=gpu.key_count(), launches=launches)
-    log(f"  equal responses, lone responses, tables and stats; card engine {rate:,.0f} "
-        f"decisions/s ({m['n_req']} requests in {m['gpu_s']:.2f} s, the 2 traced windows "
-        f"left out; CPU twin {total / m['cpu_s']:,.0f}/s); device busy {busy} of the "
-        f"traced windows' wall time")
-    log(f"  {fast['taken']} fast windows taken in {fast['s']:.2f} s; their leftover "
-        f"tail (duplicate, gregorian, invalid lanes through the python pipeline): "
-        f"{fast['tail_requests']} of {total} requests, {fast['tail_s']:.2f} s")
-    log(f"  stage seconds (card engine, all windows and lone misses): "
-        + ", ".join(f"{s} {v:.3f}" for s, v in stage_s.items())
-        + f"; dispatch {m['dispatch_s']:.3f} s, fetch {m['fetch_s']:.3f} s")
-    log(f"  lone path: {m['lone_calls']} calls in {m['lone_s']:.3f} s ({m['lone_native']} "
-        f"native, {m['lone_miss']} misses as one-request windows), {m['seeded']} mirrors "
-        f"seeded in {m['seed_s']:.3f} s; native_singles {stats['native_singles']}; "
-        f"{gpu.key_count()} keys; launches {launches}")
+    seed_calls = m["seed_calls"]
+    results["engine"]["seed_mirror_us"] = m["seed_s"] / seed_calls * 1e6
+    tlog(f"  equal responses, lone responses, tables and stats; card engine {rate:,.0f} "
+         f"decisions/s ({m['n_req']} requests in {m['gpu_s']:.2f} s, the 2 traced windows "
+         f"left out; CPU twin {total / m['cpu_s']:,.0f}/s); device busy {busy} of the "
+         f"traced windows' wall time")
+    tlog(f"  {fast['taken']} fast windows taken in {fast['s']:.2f} s; their leftover "
+         f"tail (duplicate, gregorian, invalid lanes through the python pipeline): "
+         f"{fast['tail_requests']} of {total} requests, {fast['tail_s']:.2f} s")
+    tlog(f"  stage seconds (card engine, all windows and lone misses): "
+         + ", ".join(f"{s} {v:.3f}" for s, v in stage_s.items())
+         + f"; dispatch {m['dispatch_s']:.3f} s, fetch {m['fetch_s']:.3f} s")
+    tlog(f"  lone path: {m['lone_calls']} calls in {m['lone_s']:.3f} s ({m['lone_native']} "
+         f"native, {m['lone_miss']} misses as one-request windows); seed_mirror "
+         f"{seed_calls} calls ({m['seeded']} seeded) in {m['seed_s']:.3f} s, "
+         f"{m['seed_s'] / seed_calls * 1e6:.1f} us per call through the pinned gather; "
+         f"native_singles {stats['native_singles']}; {gpu.key_count()} keys; "
+         f"launches {launches}")
+    # the lone path's host split, after every check above: it re-seeds
+    # mirrors from the table and so leaves the two engines apart
+    hot = [r.hash_key() for r in lone_requests(batches[-1][0], key_cfg)]
+    results["host_split_seed_mirror"] = split_seed_mirror(
+        gpu, [k for k in hot if gpu.directory.peek_slot(k) >= 0])
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
@@ -570,11 +626,113 @@ def phase_engine_python(seed, n_windows, dev, results):
     rate = m["n_req"] / m["gpu_s"]
     results["engine_python"] = dict(m, windows=n_windows, decisions_per_s=rate,
                                     stats=gpu.stats.as_dict(), launches=launches)
-    log(f"  equal responses, tables and stats; card engine {rate:,.0f} decisions/s; "
-        f"launches {launches}")
+    tlog(f"  equal responses, tables and stats; card engine {rate:,.0f} decisions/s; "
+         f"launches {launches}")
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------- host-stage split
+
+HOST_SPLIT_CALLS = 10_000
+RING_STAGES = ("checks", "lookups", "allocation", "stream_device", "ctypes_call")
+SEED_STAGES = ("lock_peek", "slot_write", "gather_wrapper", "wait_read", "mirror_seed")
+
+
+def log_split(what, us):
+    tlog(f"  host split, {what}: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+         + f"; {sum(us.values()):.2f} us per call in all")
+
+
+def split_ring(x):
+    """Host microseconds per ring wrapper call, by stage (RING_STAGES), over
+    HOST_SPLIT_CALLS calls of the sequence ring_all_reduce_cuda runs; then
+    whole wrapper calls beside torch.sum(x, 0), both on the host clock."""
+    k = rk._load()
+    launch, pc = k.ring_all_reduce_launch, time.perf_counter_ns
+    ns = dict.fromkeys(RING_STAGES, 0)
+    for i in range(HOST_SPLIT_CALLS):
+        if i % 1000 == 0:
+            torch.cuda.synchronize()  # the launch queue never fills
+        t0 = pc()
+        index = _launch.cuda_index(x, "x")
+        _launch.check(x, "x", torch.int64, (None, None), index)
+        S, L = x.shape
+        t1 = pc()
+        kk = rk._kernels or rk._load()
+        if S > kk.max_shards:
+            raise SystemExit("ring split: too many shards")
+        t2 = pc()
+        out = torch.empty_like(x)
+        t3 = pc()
+        stream = kk.stream(index)
+        t4 = pc()
+        err = launch(index, x.data_ptr(), out.data_ptr(), S, L, stream)
+        t5 = pc()
+        check(err == 0, f"ring split: launch error {err}")
+        for stage, a, b in zip(RING_STAGES, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+            ns[stage] += b - a
+    split = {"stages_us": {st: v / HOST_SPLIT_CALLS / 1e3 for st, v in ns.items()}}
+    torch.cuda.synchronize()
+    # whole calls on the host clock (no wait): the wrapper and its yardstick
+    split["wrapper_us"] = host_us(lambda i: rk.ring_all_reduce_cuda(x), HOST_SPLIT_CALLS)
+    split["torch_sum_us"] = host_us(lambda i: torch.sum(x, 0), HOST_SPLIT_CALLS)
+    torch.cuda.synchronize()
+    log_split(f"ring_all_reduce_cuda S={x.shape[0]} L={x.shape[1]}", split["stages_us"])
+    tlog(f"  host clock per call, no wait: ring_all_reduce_cuda {split['wrapper_us']:.2f} us, "
+         f"torch.sum(x, 0) {split['torch_sum_us']:.2f} us")
+    return split
+
+
+def check_raw_stream(dev):
+    """The launch path's stream lookup (ops/_launch.py, a private torch
+    function) must give what torch.cuda.current_stream gives, on the
+    default stream and inside a side-stream context."""
+    raw = rk._load().stream
+    for st in (torch.cuda.current_stream(dev), torch.cuda.Stream(dev)):
+        with torch.cuda.stream(st):
+            check(raw(dev.index) == torch.cuda.current_stream(dev).cuda_stream,
+                  "the raw stream lookup differs from torch.cuda.current_stream")
+    log("  the launch path's raw stream handle equals torch.cuda.current_stream's, "
+        "default and side stream")
+
+
+def split_seed_mirror(gpu, keys):
+    """Host microseconds per Engine.seed_mirror, by stage (SEED_STAGES),
+    over HOST_SPLIT_CALLS calls cycling over `keys`, of the sequence it
+    runs: the slot written into the page-locked buffer, the pinned gather,
+    one wait on the stream and the row read from the buffer (wait_read holds
+    the kernel), the mirror written. Then whole seed_mirror calls."""
+    check(len(keys) > 0, "host split: no seeded key to gather")
+    d, state, lone = gpu.directory, gpu.state, gpu._lone
+    pc = time.perf_counter_ns
+    ns = dict.fromkeys(SEED_STAGES, 0)
+    for i in range(HOST_SPLIT_CALLS):
+        key = keys[i % len(keys)]
+        t0 = pc()
+        with gpu._lock:
+            slot = d.peek_slot(key)
+            t1 = pc()
+            lone.slot_np[0] = slot
+            t2 = pc()
+            rowk.gather_rows_cuda(state, lone.slot, lone.row)
+            t3 = pc()
+            rowk.sync_stream(lone.index)
+            row = lone.row_np
+            t4 = pc()
+            check(row[0] >= 0, f"host split: {key} has a vacant row")
+            d.mirror_seed(key, row)
+        t5 = pc()
+        for stage, a, b in zip(SEED_STAGES, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+            ns[stage] += b - a
+    split = {"stages_us": {st: v / HOST_SPLIT_CALLS / 1e3 for st, v in ns.items()}}
+    split["seed_mirror_us"] = host_us(lambda i: gpu.seed_mirror(keys[i % len(keys)]),
+                                      HOST_SPLIT_CALLS)
+    log_split("seed_mirror", split["stages_us"])
+    tlog(f"  host clock per call: Engine.seed_mirror {split['seed_mirror_us']:.2f} us "
+         f"over {HOST_SPLIT_CALLS} calls")
+    return split
 
 
 # ----------------------------------------------------------------- phase 4
@@ -591,18 +749,20 @@ def phase_global(seed, dev, results):
         check(torch.equal(got, want), f"ring L={L}: kernel and plain version differ")
         check(torch.equal(got, _psum(x)), f"ring L={L}: ring and psum differ")
         call_ms = event_ms(lambda i: rk.ring_all_reduce_cuda(x), 200)
-        dev_ms = profiled_kernel_ms(lambda i: rk.ring_all_reduce_cuda(x), 50, "ring_kernel")
-        ms = dev_ms if dev_ms is not None else call_ms
+        ms = profiled_ms(lambda i: rk.ring_all_reduce_cuda(x), 200, "ring_kernel")
         plain_ms = event_ms(lambda i: rk.ring_all_reduce_plain(x), 50)
         lib_ms = event_ms(lambda i: torch.sum(x, 0), 200)
+        lib_dev_ms = profiled_ms(lambda i: torch.sum(x, 0), 200)
         b_ms, b_by = bound_ms(2 * S * L * 8, 2 * (S - 1) * L)
         ring_rec[L] = dict(L=L, S=S, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                           max_abs_err=max_abs_err(got, want))
-        log(f"  ring L={L}: bit-equal; kernel {ms:.5f} ms on the device, {call_ms:.4f} ms "
-            f"per wrapper call; plain {plain_ms:.4f} ms; torch.sum {lib_ms:.4f} ms; "
-            f"bound {b_ms:.6f} ms ({b_by})")
+                           library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=max_abs_err(got, want))
+        tlog(f"  ring L={L}: bit-equal; kernel {fms(ms)} ms on the device, {call_ms:.4f} ms "
+             f"per wrapper call; plain {plain_ms:.4f} ms; torch.sum {lib_ms:.4f} ms per "
+             f"call, {fms(lib_dev_ms)} ms on the device; bound {b_ms:.6f} ms ({b_by})")
     results["ring"] = list(ring_rec.values())
+    check_raw_stream(dev)
+    results["host_split_ring"] = split_ring(x)
 
     plan = MeshPlan(n_shards=S, capacity_per_shard=C)
     card = make_sharded_table(plan, dev)
@@ -652,8 +812,8 @@ def phase_global(seed, dev, results):
     launches = {**dk.launch_counts, **rk.launch_counts}
     results["global"] = dict(S=S, C=C, G=G, steps=steps, step_ms=t_ring / steps * 1e3,
                              launches=launches)
-    log(f"  {steps} sync steps: equal mirrors and shard tables; ring step "
-        f"{t_ring / steps * 1e3:.3f} ms; launches {launches}")
+    tlog(f"  {steps} sync steps: equal mirrors and shard tables; ring step "
+         f"{t_ring / steps * 1e3:.3f} ms; launches {launches}")
     del card, host
     torch.cuda.empty_cache()
     return launches, ring_rec[4 * G]
@@ -682,10 +842,73 @@ def gather_stimulus(rng, C, m, device):
 
 
 def timed_kernel(run_k, run_p, run_lib, kernel_name, iters=64):
-    call_ms = event_ms(run_k, iters)
-    dev_ms = profiled_kernel_ms(run_k, 32, kernel_name)
-    return dict(ms=dev_ms if dev_ms is not None else call_ms, call_ms=call_ms,
-                plain_ms=event_ms(run_p, 8), library_ms=event_ms(run_lib, iters))
+    return dict(ms=profiled_ms(run_k, 32, kernel_name), call_ms=event_ms(run_k, iters),
+                plain_ms=event_ms(run_p, 8), library_ms=event_ms(run_lib, iters),
+                library_device_ms=profiled_ms(run_lib, 32))
+
+
+def pinned_gather(rng, kern, dev):
+    """The gather's pinned form (slots and rows in page-locked host memory,
+    read and written by the kernel through their mapped addresses), as
+    Engine.seed_mirror runs it: an unpinned slot or out is refused; bit-equal
+    to gather_rows_plain at m = 1 (the slots -1, C, C + 8 and random ones,
+    one call each) and m = 64 (the three clamped slots among random ones);
+    then timed: device ms per launch (torch.profiler), and, on the host
+    clock, ms per whole round trip (launch, one wait on the stream, the rows
+    read) as call_ms, beside the plain version and the yardstick
+    state[slot, :7].tolist() doing the same work on the same clock, each
+    with its readback. Returns records and the largest difference."""
+    C, index = kern.shape[0], kern.get_device()
+    recs, err = [], 0
+    for m in PINNED_M:
+        if m == 1:
+            vals = [np.array([v], np.int32) for v in (-1, C, C + 8)]
+            vals += [rng.integers(0, C, 1).astype(np.int32) for _ in range(13)]
+        else:
+            first = rng.integers(0, C, m).astype(np.int32)
+            first[:3] = [-1, C, C + 8]
+            vals = [first] + [gather_stimulus(rng, C, m, "cpu").numpy() for _ in range(15)]
+        slots = [torch.from_numpy(v).pin_memory() for v in vals]
+        out = torch.empty((rowk.GATHER_FIELDS, m), dtype=torch.int64, pin_memory=True)
+        out_np = out.numpy()
+        for bad, what in ((torch.from_numpy(vals[0].copy()), "slots"),
+                          (torch.empty((rowk.GATHER_FIELDS, m), dtype=torch.int64), "out")):
+            try:  # pageable host memory has no device address
+                rowk.gather_rows_cuda(kern, *((bad, out) if what == "slots" else (slots[0], bad)))
+            except ValueError as e:
+                check("page-locked" in str(e), f"unpinned {what}: wrong refusal {e}")
+            else:
+                check(False, f"pinned gather m={m} took an unpinned {what}")
+        for s in slots:
+            rowk.gather_rows_cuda(kern, s, out)
+            rowk.sync_stream(index)
+            want = rowk.gather_rows_plain(kern, s.to(dev)).cpu()
+            err = max(err, max_abs_err(out, want))
+            check(torch.equal(out, want), f"pinned gather m={m} slots {s.tolist()[:4]}: differs")
+        idx = [torch.from_numpy(v.astype(np.int64).clip(0, C - 1)).to(dev) for v in vals]
+        if m == 1:  # the lone path's own yardstick: an int index, one readback
+            ints = [int(i.item()) for i in idx]
+            run_lib = lambda i: kern[ints[i % 16], :7].tolist()  # noqa: E731
+        else:
+            run_lib = lambda i: kern[idx[i % 16], :7].tolist()  # noqa: E731
+
+        def run_k(i):
+            rowk.gather_rows_cuda(kern, slots[i % 16], out)
+
+        def round_trip(i):
+            rowk.gather_rows_cuda(kern, slots[i % 16], out)
+            rowk.sync_stream(index)
+            return out_np.tolist()
+
+        b_ms, b_by = bound_ms(m * (4 + 56 + 56), 0)
+        recs.append(dict(
+            kernel="gather_rows", form="pinned", m=m, ms=profiled_ms(run_k, 32, "gather_kernel"),
+            call_ms=host_us(round_trip, 2000) / 1e3,
+            plain_ms=host_us(lambda i: rowk.gather_rows_plain(kern, idx[i % 16]).tolist(),
+                             200) / 1e3,
+            library_ms=host_us(run_lib, 2000) / 1e3, library_device_ms=profiled_ms(run_lib, 32),
+            bound_ms=b_ms, bound_by=b_by, bytes=m * 116))
+    return recs, err
 
 
 def phase_rows(seed, dev, results):
@@ -733,8 +956,11 @@ def phase_rows(seed, dev, results):
                          lambda i: torch.index_select(kern, 0, lib_idx[i % 16]),
                          "gather_kernel")
         b_ms, b_by = bound_ms(m * (4 + 56 + 56), 0)
-        recs.append(dict(kernel="gather_rows", m=m, bound_ms=b_ms, bound_by=b_by,
-                         bytes=m * 116, **t))
+        recs.append(dict(kernel="gather_rows", form="device", m=m, bound_ms=b_ms,
+                         bound_by=b_by, bytes=m * 116, **t))
+    pinned, errs["gather_rows_pinned"] = pinned_gather(rng, kern, dev)
+    recs += pinned
+    errs["gather_rows"] = max(errs["gather_rows"], errs["gather_rows_pinned"])
     del kern, plain
     torch.cuda.empty_cache()
 
@@ -768,16 +994,23 @@ def phase_rows(seed, dev, results):
     del kern, plain, ones, idx, sets
     torch.cuda.empty_cache()
     for r in recs:
-        log(f"  {r['kernel']:11s} m={r['m']:5d}: bit-equal; kernel {r['ms']:.5f} ms on the "
-            f"device, {r['call_ms']:.4f} ms per wrapper call; plain {r['plain_ms']:.4f} ms; "
-            f"library {r['library_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
-            f"{r['m'] / r['ms'] * 1e3:,.0f} rows/s on the device")
+        if r.get("form") == "pinned":
+            how = ("per round trip on the host clock (launch, wait, rows read); plain "
+                   f"{r['plain_ms']:.4f} ms, yardstick state[slot, :7].tolist() "
+                   f"{r['library_ms']:.4f} ms, the same")
+        else:
+            how = (f"per wrapper call; plain {r['plain_ms']:.4f} ms; library "
+                   f"{r['library_ms']:.4f} ms per call")
+        form = f" ({r['form']})" if "form" in r else ""
+        tlog(f"  {r['kernel']:11s}{form} m={r['m']:5d}: bit-equal; kernel {fms(r['ms'])} ms on "
+             f"the device, {r['call_ms']:.4f} ms {how}, {fms(r['library_device_ms'])} ms on "
+             f"the device; bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
     log(f"  bench_rows (python3 -m gubernator_tpu_torch.bench_rows): {B} rows per call")
     rowk.reset_launch_counts()
     probe = bench_rows.run(dev)
     launches = dict(rowk.launch_counts)
-    log(f"  {json.dumps(probe)}")
+    tlog(f"  {json.dumps(probe)}")
     torch.cuda.empty_cache()
     results["rows"] = recs
     results["bench_rows"] = probe
@@ -796,9 +1029,10 @@ def main(argv=None) -> int:
         return 2
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    global SMI
+    smi = SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -811,8 +1045,8 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
-        log(f"  built {_build.source_path(name).name} in {secs:.1f} s")
-    log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s in all")
+        tlog(f"  built {_build.source_path(name).name} in {secs:.1f} s")
+    tlog(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s in all")
 
     results = {"card": smi, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "seed": args.seed, "build_s": build_s,
@@ -834,7 +1068,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=n, max_abs_err=decide_errs[name], ms=main_shape["ms"],
             plain_ms=main_shape["plain_ms"], bound_ms=main_shape["bound_ms"],
-            bound_by=main_shape["bound_by"], library_ms=None,
+            bound_by=main_shape["bound_by"], library_ms=None, library_device_ms=None,
             call_ms=main_shape["call_ms"], shape=f"W={WINDOW}"))
     n = glob_launches["ring_all_reduce"]
     check(n > 0, "ring_all_reduce was never launched on the GLOBAL sync path")
@@ -844,24 +1078,27 @@ def main(argv=None) -> int:
         max_abs_err=ring_main["max_abs_err"], ms=ring_main["ms"],
         plain_ms=ring_main["plain_ms"], bound_ms=ring_main["bound_ms"],
         bound_by=ring_main["bound_by"], library_ms=ring_main["library_ms"],
-        call_ms=ring_main["call_ms"], shape=f"S={GLOBAL_SHARDS}, L={ring_main['L']}"))
+        library_device_ms=ring_main["library_device_ms"], call_ms=ring_main["call_ms"],
+        shape=f"S={GLOBAL_SHARDS}, L={ring_main['L']}"))
     for name in ("inject_rows", "gather_rows", "row_bump"):
         n = bump_launches if name == "row_bump" else eng_launches[name]
         check(n > 0, f"{name} was never launched on its main path")
         r = next(r for r in row_recs if r["kernel"] == name
-                 and r["m"] == ROW_MAIN_M.get(name, r["m"]))
+                 and r["m"] == ROW_MAIN_M.get(name, r["m"])
+                 and r.get("form", "pinned") == "pinned")  # the lone path's gather
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=n, max_abs_err=row_errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            call_ms=r["call_ms"], shape=f"m={r['m']}"))
+            library_device_ms=r["library_device_ms"], call_ms=r["call_ms"],
+            shape=f"m={r['m']}" + (", pinned" if r.get("form") == "pinned" else "")))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    log(f"total {results['total_s']:.1f} s")
+    tlog(f"total {results['total_s']:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

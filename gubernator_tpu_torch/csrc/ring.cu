@@ -20,13 +20,19 @@
 // What bounds it on an H100: memory. It reads S*L*8 bytes and writes as
 // many; the (S-1)*L adds are negligible. At the GLOBAL sync's sizes
 // (L = G or 4G, G = 1024) it moves tens of kilobytes, so the launch
-// dominates. The cross-card form (peer-mapped buffers over NVLink) is not
-// here.
+// dominates, on the host (the wrapper and this entry point) more than on
+// the device. The entry point therefore makes the card current only when it
+// is not already. Blocks are kThreads = 64 threads: small blocks spread the
+// few thousand columns over more SMs, and on an H100 they ran about a tenth
+// faster than blocks of 256 at L = 1024 and 4096 (PERF.md, Findings). The
+// cross-card form (peer-mapped buffers over NVLink) is not here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 64;
 
 template <int S>
 __global__ void ring_kernel(const int64_t* __restrict__ x, int64_t* __restrict__ out, int L) {
@@ -54,27 +60,35 @@ __global__ void ring_kernel(const int64_t* __restrict__ x, int64_t* __restrict__
 
 template <int S>
 void launch(const int64_t* x, int64_t* out, int L, cudaStream_t stream) {
-  const int threads = 256;
-  ring_kernel<S><<<(L + threads - 1) / threads, threads, 0, stream>>>(x, out, L);
+  ring_kernel<S><<<(L + kThreads - 1) / kThreads, kThreads, 0, stream>>>(x, out, L);
+}
+
+// cudaSetDevice costs a runtime call; the card is almost always current already.
+cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
 }
 
 }  // namespace
 
-// The largest S this file instantiates; ops/ring.py checks against it.
+// The largest S this file instantiates; ops/ring.py reads it once, at load.
 extern "C" int ring_max_shards() { return 16; }
 
 // out[s, :] = sum over s' of x[s', :] for int64 x[S, L], on `stream`.
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
-extern "C" int ring_all_reduce_launch(int device, const void* x, void* out,
-                                      int S, int L, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// Returns cudaErrorInvalidValue for a shape it does not take, else
+// cudaGetLastError() after the launch (0 when it was accepted).
+extern "C" int ring_all_reduce_launch(int device, const void* x, void* out, int S, int L,
+                                      void* stream) {
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto* xi = static_cast<const int64_t*>(x);
   auto* o = static_cast<int64_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (S) {
-#define RING_CASE(n) \
-  case n:            \
+#define RING_CASE(n)        \
+  case n:                   \
     launch<n>(xi, o, L, st); \
     break;
     RING_CASE(1) RING_CASE(2) RING_CASE(3) RING_CASE(4)

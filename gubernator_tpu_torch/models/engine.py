@@ -20,16 +20,19 @@ its request-object path. The engine owns:
   injects the mirror's row back into the table first.
 
 On CUDA every window is one host-to-device copy of its staging, one launch
-of csrc/decide.cu and one copy of the response back; mirror rows go in and
-out through csrc/rows.cu. On the CPU the same path runs the plain PyTorch
-versions. The engine is synchronous and thread-safe through one lock.
+of csrc/decide.cu and one copy of the response back; mirror rows go in
+through csrc/rows.cu's inject. seed_mirror's one-slot gather reads its slot
+from, and writes its row to, two page-locked host buffers the engine
+allocates once: no copy either way, one wait on the stream. On the CPU the
+same path runs the plain PyTorch versions. The engine is synchronous and
+thread-safe through one lock.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +58,12 @@ from gubernator_tpu_torch.ops.decide import (
     staging_policy,
     widen_compact_out,
 )
-from gubernator_tpu_torch.ops.rows import gather_rows, inject_rows
+from gubernator_tpu_torch.ops.rows import (
+    GATHER_FIELDS,
+    gather_rows,
+    inject_rows,
+    sync_stream,
+)
 from gubernator_tpu_torch.types import (
     SLOW_PATH_BEHAVIOR_MASK as _NATIVE_SINGLE_SLOW_MASK,
     Behavior,
@@ -66,6 +74,17 @@ from gubernator_tpu_torch.utils.interval import millisecond_now
 from gubernator_tpu_torch.utils.platform import resolve_device
 
 _GREG_MASK = int(Behavior.DURATION_IS_GREGORIAN)
+
+
+class LoneBuffers(NamedTuple):
+    """The lone path's page-locked gather operands on CUDA: the i32[1] slot
+    and the i64[7, 1] row, numpy views of the same memory, and the card."""
+
+    slot: torch.Tensor
+    row: torch.Tensor
+    slot_np: np.ndarray
+    row_np: np.ndarray
+    index: int
 
 
 def _gather_rows(state: torch.Tensor, slot: torch.Tensor):
@@ -137,6 +156,14 @@ class Engine:
         # "auto" ships each window on the leanest eligible format; "wide"
         # pins the i64[9] format
         self._staging = staging_policy()
+        # On CUDA, the lone path's page-locked slot and row, allocated once
+        # (a failed allocation raises)
+        self._lone: Optional[LoneBuffers] = None
+        if self.device.type == "cuda":
+            slot = torch.empty(1, dtype=torch.int32, pin_memory=True)
+            row = torch.empty((GATHER_FIELDS, 1), dtype=torch.int64, pin_memory=True)
+            self._lone = LoneBuffers(slot, row, slot.numpy(), row.numpy()[:, 0],
+                                     self.state.get_device())
 
     # ------------------------------------------------------------------ API
 
@@ -178,7 +205,7 @@ class Engine:
                         decide_scan_packed_lean(self.state, self._up(ln[0]),
                                                 self._up(ln[1]), 0)
                 k *= 2
-            gather_rows(self.state, self._up(np.zeros(1, np.int32)))
+            self._gather_row(0)
             warm_inject = np.zeros((1, 8), np.int64)
             warm_inject[0, 0] = -1  # dropped lane: build, mutate nothing
             self._apply_inject_rows(warm_inject)
@@ -382,12 +409,25 @@ class Engine:
             slot = d.peek_slot(key)
             if slot < 0:
                 return False
-            cols = gather_rows(self.state, self._up(np.array([slot], np.int32)))
-            row = cols[:, 0].tolist()
+            row = self._gather_row(slot)
             if row[0] < 0:
                 return False  # vacant row: nothing to mirror
             d.mirror_seed(key, row)
         return True
+
+    def _gather_row(self, slot: int) -> np.ndarray:
+        """The 7 fields of the table row at `slot` (clamped), by one 1-slot
+        gather. On CUDA the slot goes in and the row comes out through the
+        page-locked lone buffers, with one wait on the current stream: the
+        i64[7] returned IS the row buffer, valid until the next gather.
+        Caller holds the engine lock."""
+        lone = self._lone
+        if lone is None:
+            return gather_rows(self.state, self._up(np.array([slot], np.int32)))[:, 0].numpy()
+        lone.slot_np[0] = slot
+        gather_rows(self.state, lone.slot, lone.row)
+        sync_stream(lone.index)
+        return lone.row_np
 
     # ------------------------------------------------------------- internals
 

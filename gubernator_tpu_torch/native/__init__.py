@@ -219,7 +219,7 @@ class NativeKeyDirectory:
         """Install a device row copy as the key's mirror; decide_one then
         serves the key natively until a batch lookup invalidates it."""
         b = key.encode("utf-8")
-        row = np.asarray(list(row7), np.int64)
+        row = np.ascontiguousarray(row7, np.int64)  # no copy for an i64[7]
         if row.shape != (7,):
             raise ValueError(f"a mirror row has 7 fields, got {row.shape}")
         self._lib.keydir_mirror_seed(self._kd, b, len(b), row.ctypes.data)

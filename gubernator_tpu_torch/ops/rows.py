@@ -9,8 +9,12 @@ Three functions, each with a plain version and a kernel in csrc/rows.cu:
   (:1123): algo and status are truncated through int32, field 7 is zeroed,
   and a slot outside [0, C) is dropped. The rows of one call must target
   distinct slots (the key directory emits each dirty mirror once).
-- gather_rows(state, slot) -> i64[7, m]: the first 7 fields of the rows at
-  `slot` clamped to [0, C-1], as the JAX `_gather_rows` (:86) reads them.
+- gather_rows(state, slot, out=None) -> i64[7, m]: the first 7 fields of
+  the rows at `slot` clamped to [0, C-1], as the JAX `_gather_rows` (:86)
+  reads them, into `out` when given. On the card, `slot` and `out` may
+  both lie in page-locked host memory instead: the kernel reads and writes
+  them through their mapped addresses, and the caller waits on the stream
+  (sync_stream) before it reads `out`. That is the engine's lone path.
 - row_bump(table, slots) -> i32[1]: the row-access probe of the JAX
   package's scripts/bench_pallas_rows.py (its Pallas `kernel`, :36): +1 to
   every element of the rows at `slots` of an int32[N, 128] table, in place,
@@ -19,15 +23,18 @@ Three functions, each with a plain version and a kernel in csrc/rows.cu:
   slot outside [0, N) is dropped by both.
 
 Each dispatcher takes tensors on either device: the CPU runs the plain
-version, CUDA launches the kernel or raises; it never falls back.
+version, CUDA launches the kernel or raises; it never falls back. The CUDA
+wrappers share the launch path of ops/_launch.py.
 """
 
 from __future__ import annotations
 
-import ctypes
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
+
+from gubernator_tpu_torch.ops import _launch
 
 I32 = torch.int32
 I64 = torch.int64
@@ -56,9 +63,13 @@ def inject_rows_plain(state: torch.Tensor, inject: torch.Tensor) -> None:
     state.index_copy_(0, slot[keep], rows[keep])
 
 
-def gather_rows_plain(state: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+def gather_rows_plain(state: torch.Tensor, slot: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     g = slot.to(I64).clamp(0, state.shape[0] - 1)
-    return state.index_select(0, g)[:, :GATHER_FIELDS].t().contiguous()
+    rows = state.index_select(0, g)[:, :GATHER_FIELDS].t()
+    if out is None:
+        return rows.contiguous()
+    return out.copy_(rows)
 
 
 def row_bump_plain(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -72,99 +83,98 @@ def row_bump_plain(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- CUDA kernels
 
-_lib_handle: Optional[ctypes.CDLL] = None
+_kernels: Optional[SimpleNamespace] = None
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        from gubernator_tpu_torch.ops import _build
-
-        lib = _build.load("rows")
-        c = ctypes
-        lib.inject_rows_launch.argtypes = [
-            c.c_int, c.c_void_p, c.c_longlong, c.c_void_p, c.c_int, c.c_void_p]
-        lib.gather_rows_launch.argtypes = [
-            c.c_int, c.c_void_p, c.c_longlong, c.c_void_p, c.c_int, c.c_void_p,
-            c.c_void_p]
-        lib.row_bump_launch.argtypes = [
-            c.c_int, c.c_void_p, c.c_longlong, c.c_void_p, c.c_int, c.c_void_p,
-            c.c_void_p]
-        for fn in (lib.inject_rows_launch, lib.gather_rows_launch,
-                   lib.row_bump_launch):
-            fn.restype = c.c_int
-        _lib_handle = lib
-    return _lib_handle
-
-
-def _check(t: torch.Tensor, what: str, dtype, width: Optional[int], device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
-    if width is None and t.dim() != 1:
-        raise ValueError(f"{what} must be 1-D, got {tuple(t.shape)}")
-    if width is not None and (t.dim() != 2 or t.shape[1] != width):
-        raise ValueError(f"{what} must be [n, {width}], got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-
-
-def _cuda_args(t: torch.Tensor, what: str):
-    dev = t.device
-    if dev.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return dev, index, torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+def _load() -> SimpleNamespace:
+    global _kernels
+    if _kernels is None:
+        V, I, LL = _launch.VOID_P, _launch.INT, _launch.LONGLONG
+        _kernels = _launch.load("rows", {
+            "inject_rows_launch": (I, V, LL, V, I, V),
+            "gather_rows_launch": (I, V, LL, V, I, V, V),
+            "gather_rows_pinned_launch": (I, V, LL, V, I, V, V),
+            "row_bump_launch": (I, V, LL, V, I, V, V),
+            "rows_stream_synchronize": (V,),
+        })
+    return _kernels
 
 
 def inject_rows_cuda(state: torch.Tensor, inject: torch.Tensor) -> None:
-    dev, index, stream = _cuda_args(state, "inject_rows_cuda")
-    _check(state, "table", I64, ROW_FIELDS, dev)
-    _check(inject, "inject rows", I64, ROW_FIELDS, dev)
-    m = inject.shape[0]
+    index = _launch.cuda_index(state, "inject_rows_cuda")
+    _launch.check(state, "table", I64, (None, ROW_FIELDS), index)
+    _launch.check(inject, "inject rows", I64, (None, ROW_FIELDS), index)
+    m = inject.size(0)
     if m == 0:
         return
-    _raise_on(_lib().inject_rows_launch(index, state.data_ptr(), state.shape[0],
-                                        inject.data_ptr(), m, stream), "inject_rows")
+    k = _kernels or _load()
+    _launch.raise_on(k.inject_rows_launch(index, state.data_ptr(), state.size(0),
+                                          inject.data_ptr(), m, k.stream(index)),
+                     "inject_rows")
     launch_counts["inject_rows"] += 1
 
 
-def gather_rows_cuda(state: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    dev, index, stream = _cuda_args(state, "gather_rows_cuda")
-    _check(state, "table", I64, ROW_FIELDS, dev)
-    _check(slot, "slots", I32, None, dev)
-    if state.shape[0] == 0:
+def gather_rows_cuda(state: torch.Tensor, slot: torch.Tensor,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather on state's card into `out` (allocated there when None). Either
+    `slot` lies on that card, and so does `out` when given, or both lie in
+    page-locked host memory (pin_memory=True): then the kernel reads the
+    slots and writes the rows through their mapped addresses, and the caller
+    must wait on the stream (sync_stream) before reading `out`. Raises on
+    anything else; an unpinned CPU tensor is refused by the entry point,
+    whose cudaHostGetDevicePointer finds no device address for it."""
+    index = _launch.cuda_index(state, "gather_rows_cuda")
+    _launch.check(state, "table", I64, (None, ROW_FIELDS), index)
+    C = state.size(0)
+    if C == 0:
         raise ValueError("gather from an empty table")
-    m = slot.shape[0]
-    out = torch.empty((GATHER_FIELDS, m), dtype=I64, device=dev)
+    pinned = not slot.is_cuda
+    where = _launch.HOST if pinned else index
+    _launch.check(slot, "slots", I32, (None,), where)
+    m = slot.size(0)
+    if out is None:
+        if pinned:
+            raise ValueError("a gather of page-locked slots needs a page-locked out")
+        out = state.new_empty((GATHER_FIELDS, m))
+    else:
+        _launch.check(out, "out", I64, (GATHER_FIELDS, m), where)
     if m == 0:
         return out
-    _raise_on(_lib().gather_rows_launch(index, state.data_ptr(), state.shape[0],
-                                        slot.data_ptr(), m, out.data_ptr(), stream),
-              "gather_rows")
+    k = _kernels or _load()
+    launch = k.gather_rows_pinned_launch if pinned else k.gather_rows_launch
+    err = launch(index, state.data_ptr(), C, slot.data_ptr(), m, out.data_ptr(),
+                 k.stream(index))
+    if err and pinned:  # CUDA found no device address: name the operand
+        _launch.require_pinned(slot, "slots")
+        _launch.require_pinned(out, "out")
+    _launch.raise_on(err, "gather_rows")
     launch_counts["gather_rows"] += 1
     return out
 
 
+def sync_stream(index: int) -> None:
+    """Wait for the work queued on card `index`'s current stream (not the
+    whole card): what a pinned gather's caller does before reading out."""
+    k = _kernels or _load()
+    err = k.rows_stream_synchronize(k.stream(index))
+    if err != 0:
+        raise RuntimeError(f"stream synchronize failed: CUDA error {err}")
+
+
 def row_bump_cuda(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    dev, index, stream = _cuda_args(table, "row_bump_cuda")
-    _check(table, "probe table", I32, BUMP_ROW, dev)
-    _check(slots, "slots", I32, None, dev)
+    index = _launch.cuda_index(table, "row_bump_cuda")
+    _launch.check(table, "probe table", I32, (None, BUMP_ROW), index)
+    _launch.check(slots, "slots", I32, (None,), index)
     if table.data_ptr() % 16:
         raise ValueError("probe table must be 16-byte aligned")
-    B = slots.shape[0]
+    B = slots.size(0)
     if B == 0:
         raise ValueError("row_bump needs at least one slot")
-    out = torch.empty(1, dtype=I32, device=dev)
-    _raise_on(_lib().row_bump_launch(index, table.data_ptr(), table.shape[0],
-                                     slots.data_ptr(), B, out.data_ptr(), stream),
-              "row_bump")
+    out = slots.new_empty(1)
+    k = _kernels or _load()
+    _launch.raise_on(k.row_bump_launch(index, table.data_ptr(), table.size(0),
+                                       slots.data_ptr(), B, out.data_ptr(),
+                                       k.stream(index)), "row_bump")
     launch_counts["row_bump"] += 1
     return out
 
@@ -173,18 +183,19 @@ def row_bump_cuda(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 # The CPU takes the plain version; CUDA takes the kernel, or raises.
 
 def inject_rows(state: torch.Tensor, inject: torch.Tensor) -> None:
-    if state.device.type == "cpu":
+    if state.is_cpu:
         return inject_rows_plain(state, inject)
     return inject_rows_cuda(state, inject)
 
 
-def gather_rows(state: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    if state.device.type == "cpu":
-        return gather_rows_plain(state, slot)
-    return gather_rows_cuda(state, slot)
+def gather_rows(state: torch.Tensor, slot: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if state.is_cpu:
+        return gather_rows_plain(state, slot, out)
+    return gather_rows_cuda(state, slot, out)
 
 
 def row_bump(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return row_bump_plain(table, slots)
     return row_bump_cuda(table, slots)

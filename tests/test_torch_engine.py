@@ -262,3 +262,42 @@ def test_inject_and_gather_match_jax(monkeypatch, part):
     for w, g in zip(jeng_mod._gather_rows(jeng.state, jnp.asarray(slot)),
                     _gather_rows(teng.state, torch.from_numpy(slot))):
         np.testing.assert_array_equal(np.asarray(w), convert.to_numpy(g))
+
+
+@pytest.mark.parametrize("directory", ["native", "python"])
+def test_seed_mirror_edge_rows_match_jax(monkeypatch, directory):
+    """seed_mirror on a key whose row sits at the table's last slot (C - 1),
+    then lone decisions from that mirror; and on a key whose row is vacant
+    (nothing to mirror: both engines answer False and decide on the kernel
+    path)."""
+    from gubernator_tpu import RateLimitReq as JReq
+
+    C = 8
+    jeng, teng = _engines(monkeypatch, directory, capacity=C, min_width=8, max_width=8)
+    fields = [dict(name="api", unique_key=f"key{i}", hits=1, limit=5, duration=60_000)
+              for i in range(C)]
+    want = jeng.get_rate_limits([JReq(**f) for f in fields], now_ms=NOW)
+    got = teng.get_rate_limits([RateLimitReq(**f) for f in fields], now_ms=NOW)
+    assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
+    slot_of = dict(teng.directory.items())
+    last = next(k for k, s in slot_of.items() if s == C - 1)
+    vacant = next(k for k, s in slot_of.items() if s == 2)
+    for eng in (jeng, teng):  # the row of `vacant` goes vacant (algo -1)
+        if eng is jeng:
+            jeng.state = jeng.state.at[2, 0].set(-1)
+        else:
+            teng.state[2, 0] = -1
+    assert teng.seed_mirror(vacant) is jeng.seed_mirror(vacant) is False
+    seeded = teng.seed_mirror(last)
+    assert seeded == jeng.seed_mirror(last) == (directory == "native")
+    by_key = {f"{f['name']}_{f['unique_key']}": f for f in fields}
+    for f, native in ((by_key[last], seeded), (by_key[vacant], False)):
+        t = NOW + 1
+        w1 = jeng.decide_native_single(JReq(**f), now_ms=t)
+        g1 = teng.decide_native_single(RateLimitReq(**f), now_ms=t)
+        assert (g1 is None) == (w1 is None) == (not native)
+        if g1 is None:
+            w1 = jeng.get_rate_limits([JReq(**f)], now_ms=t)[0]
+            g1 = teng.get_rate_limits([RateLimitReq(**f)], now_ms=t)[0]
+        assert _resp_tuple(g1) == _resp_tuple(w1)
+    _assert_same_end_state(jeng, teng)

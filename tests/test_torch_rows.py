@@ -5,6 +5,12 @@ package, bit for bit, and their CUDA wrappers' contracts.
   `_gather_rows` (models/engine.py:74, :86), fed with `_apply_inject_rows`'s
   column casts (:1123-:1143: slot, algo and status through int32), on lanes
   below 0, at and past C, and with algo/status beyond int32.
+- gather_rows into a caller-given `out` (the form the engine's lone path
+  uses on the card, there with page-locked buffers) against the same JAX
+  function at the clamped slots.
+- the shared launch path's checks (ops/_launch.py), which run before any
+  library is loaded: they refuse CPU tables and a wrong card, dtype, shape
+  or contiguity; its page-lock predicate refuses ordinary CPU tensors.
 - row_bump against a numpy statement of the row-access probe of
   scripts/bench_pallas_rows.py (`t[s] += 1` on distinct rows, out =
   `s[0]`) on a 4096 x 128 table. The Pallas kernel itself cannot run here:
@@ -16,13 +22,18 @@ package, bit for bit, and their CUDA wrappers' contracts.
 Integers throughout: the tolerance is zero.
 """
 
+import os
+import subprocess
+import sys
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from gubernator_tpu_torch import bench_rows
-from gubernator_tpu_torch.ops import rows
+from gubernator_tpu_torch.ops import _launch, rows
 
 
 def _jax_inject(table, inject):
@@ -67,6 +78,81 @@ def test_gather_rows_matches_jax(C, m):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("C", [1, 9, 4096])
+def test_gather_rows_into_out_matches_jax(C):
+    """slots -1, 0, C-1, C and C + 8 (clamped to [0, C-1]), written into a
+    caller-given out whose earlier contents must not show through."""
+    from gubernator_tpu.models import engine as jeng_mod
+
+    rng = np.random.RandomState(C + 11)
+    table = rng.randint(-(1 << 40), 1 << 40, (C, 8)).astype(np.int64)
+    slot = np.array([-1, 0, C - 1, C, C + 8], np.int32)
+    want = np.stack([np.asarray(c) for c in
+                     jeng_mod._gather_rows(jnp.asarray(table), jnp.asarray(slot))])
+    out = torch.full((rows.GATHER_FIELDS, len(slot)), -7, dtype=torch.int64)
+    got = rows.gather_rows(torch.from_numpy(table), torch.from_numpy(slot), out)
+    assert got is out
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_launch_module_imports_without_cuda_or_nvcc(tmp_path):
+    """The launch path and both wrappers' modules import, and their CPU
+    dispatch runs, in a process that sees no card and has no nvcc: nothing
+    is built or loaded before a launch."""
+    code = (
+        "import torch\n"
+        "from gubernator_tpu_torch.ops import _build, _launch, ring, rows\n"
+        "assert not torch.cuda.is_available()\n"
+        "x = torch.arange(6, dtype=torch.int64).view(2, 3)\n"
+        "assert ring.ring_all_reduce(x).tolist() == [[3, 5, 7], [3, 5, 7]]\n"
+        "assert ring._kernels is None and rows._kernels is None\n"
+        "assert _build._libs == {}\n"
+        "print('ok')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PATH=str(tmp_path),
+               CUDA_HOME=str(tmp_path / "no-cuda"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120, cwd=os.path.dirname(os.path.dirname(
+                              os.path.abspath(__file__))))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def _fake_cuda(index=0, dtype=torch.int64, shape=(3, 8), contiguous=True):
+    """What _launch.check reads of a tensor on a card, for a CPU-only test."""
+    return SimpleNamespace(is_cuda=True, get_device=lambda: index, device=f"cuda:{index}",
+                           dtype=dtype, ndim=len(shape), size=lambda i: shape[i],
+                           shape=shape, is_contiguous=lambda: contiguous,
+                           is_pinned=lambda: False)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(index=1), "expected cuda:0"),
+    (dict(dtype=torch.int32), "must be torch.int64"),
+    (dict(shape=(3, 7)), r"must be \[n, 8\]"),
+    (dict(shape=(24,)), r"must be \[n, 8\]"),
+    (dict(contiguous=False), "contiguous"),
+])
+def test_launch_check_refuses(case, match):
+    _launch.check(_fake_cuda(), "table", torch.int64, (None, 8), 0)  # takes it
+    with pytest.raises(ValueError, match=match):
+        _launch.check(_fake_cuda(**case), "table", torch.int64, (None, 8), 0)
+
+
+def test_launch_check_refuses_unpinned_host_operands():
+    """The pinned gather's operands: host memory, and page-locked. The
+    entry point's address lookup refuses memory that is not page-locked;
+    require_pinned, which names the operand then, refuses an ordinary CPU
+    tensor and a tensor on a card; check(..., HOST) refuses the latter."""
+    host = torch.zeros(4, dtype=torch.int32)
+    _launch.check(host, "slots", torch.int32, (None,), _launch.HOST)  # host memory
+    with pytest.raises(ValueError, match="host memory"):
+        _launch.check(_fake_cuda(dtype=torch.int32, shape=(4,)), "slots", torch.int32,
+                      (None,), _launch.HOST)
+    for t in (host, torch.zeros((7, 1), dtype=torch.int64),
+              _fake_cuda(dtype=torch.int32, shape=(4,))):
+        with pytest.raises(ValueError, match="page-locked"):
+            _launch.require_pinned(t, "slots")
+
+
 def test_row_bump_matches_the_probe():
     rng = np.random.RandomState(5)
     N, B = 4096, 512
@@ -94,8 +180,10 @@ def test_row_bump_needs_distinct_slots():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     t = torch.zeros((4, 8), dtype=torch.int64)
+    out = torch.zeros((7, 1), dtype=torch.int64)
     for call in (lambda: rows.inject_rows_cuda(t, t[:1]),
                  lambda: rows.gather_rows_cuda(t, torch.zeros(1, dtype=torch.int32)),
+                 lambda: rows.gather_rows_cuda(t, torch.zeros(1, dtype=torch.int32), out),
                  lambda: rows.row_bump_cuda(torch.zeros((4, 128), dtype=torch.int32),
                                             torch.zeros(1, dtype=torch.int32))):
         with pytest.raises(ValueError, match="CUDA"):
