@@ -20,11 +20,14 @@ Run from the root of the repository. Phases, each fatal on failure:
    window; after each window the 16 hottest keys go through seed_mirror
    (the gather kernel in its pinned form) and three decide_native_single
    calls each (a miss becomes a one-request window), so the next window's
-   lookups inject the dirty mirrors (the inject kernel). Engine(device=
-   "cpu") takes the same sequence; responses, lone responses, tables and
-   EngineStats counters must be equal. Prints decisions/s, the stage split
-   and seed_mirror's time per call; then the host-stage split of
-   seed_mirror over 10,000 calls;
+   lookups inject the dirty mirrors (the inject kernel, in its pinned form:
+   the key directory writes the rows into the engine's page-locked
+   staging). Engine(device="cpu") takes the same sequence; responses, lone
+   responses, tables and EngineStats counters must be equal, and every
+   inject and gather launch must have gone through the pinned entry point.
+   Prints decisions/s, the stage split, seed_mirror's time per call and
+   the host time per Engine._apply_inject_rows that had rows; then the
+   host-stage split of seed_mirror over 10,000 calls;
 3b. the same engines on the python directory (GUBER_NO_NATIVE=1), 20
    windows, no lone requests;
 4. the GLOBAL sync: the ring kernel against its plain version at
@@ -35,12 +38,17 @@ Run from the root of the repository. Phases, each fatal on failure:
    G = 1024 global keys, collectives="ring" on the card against "psum" on
    the CPU; mirrors and shard tables must be equal;
 5. the row kernels against their plain versions on the card: inject at
-   m in {1, 16, 64, 4096} and gather at m in {1, 64, 8192} on a populated
-   10,000,001-row table (dropped, clamped and int32-overflowing lanes); the
-   gather's pinned form at m in {1, 64} with the slots -1, C and C + 8;
-   row_bump on an int32[10,000,000, 128] table (5.12 GB) against the plain
-   version on a clone; then the probe's own loop
-   (gubernator_tpu_torch.bench_rows).
+   m in {1, 16, 64, 4096}, from rows on the card and from page-locked host
+   rows (the engine's form, timed as a host round trip beside
+   torch.from_numpy(a).to(dev) + index_copy_), and gather at m in {1, 64,
+   8192} on a populated 10,000,001-row table (dropped, clamped and
+   int32-overflowing lanes); the reuse check: 64 pinned injects from one
+   reused InjectStaging, the host rewriting it between launches with no
+   wait but the staging's own, behind a busy stream, must leave the table
+   equal to the plain version's; the gather's pinned form at m in {1, 64}
+   with the slots -1, C and C + 8; row_bump into a caller's out on an
+   int32[10,000,000, 128] table (5.12 GB) against the plain version on a
+   clone; then the probe's own loop (gubernator_tpu_torch.bench_rows).
 
 Device times come from torch.profiler, for the kernels and for each
 library call they are compared with; where the profiler gives none the
@@ -49,7 +57,8 @@ with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
 3b, 4 and the bench_rows loop) and read just after; every kernel must have
-launched, inject and gather on phase 3. The last two lines are the
+launched, inject and gather on phase 3, both through their pinned entry
+points only. The last two lines are the
 {"kernels": [...]} record and the contract line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -110,10 +119,12 @@ SOURCES = {"decide_wide": "gubernator_tpu_torch/csrc/decide.cu",
            "inject_rows": "gubernator_tpu_torch/csrc/rows.cu",
            "gather_rows": "gubernator_tpu_torch/csrc/rows.cu",
            "row_bump": "gubernator_tpu_torch/csrc/rows.cu"}
-# the shape the inject and gather entries of the kernels line are timed at:
-# the main path's own (phase 3 injects up to LONE_KEYS rows, gathers 1 slot);
-# row_bump's is the probe's BATCH
+# the shape and form the row entries of the kernels line are timed at: the
+# main path's own (phase 3 injects up to LONE_KEYS rows and gathers 1 slot,
+# both from page-locked host memory); row_bump's is the probe's BATCH
 ROW_MAIN_M = {"inject_rows": LONE_KEYS, "gather_rows": 1}
+ROW_MAIN_FORM = {"inject_rows": "pinned", "gather_rows": "pinned", "row_bump": "device"}
+REUSE_INJECTS = 64  # pinned injects from one staging buffer in the reuse check
 
 
 SMI = "card not read yet"  # main() sets it: nvidia-smi's name, power limit
@@ -554,16 +565,36 @@ def phase_engine(seed, n_windows, dev, results):
             fast["tail_requests"] += len(requests)
         return out
 
+    # host time of the injects that had rows (the others return at once)
+    injected = {"calls": 0, "rows": 0, "s": 0.0}
+
+    def timed_inject(inject, _fn=gpu._apply_inject_rows):
+        if inject is None or len(inject) == 0:
+            return _fn(inject)
+        t0 = time.perf_counter()
+        out = _fn(inject)
+        injected["s"] += time.perf_counter() - t0
+        injected["calls"] += 1
+        injected["rows"] += len(inject)
+        return out
+
     gpu._fast_window = counted
     gpu._slow_window = tail
+    gpu._apply_inject_rows = timed_inject
     spent = timed_hooks(gpu)
     dk.reset_launch_counts()
     rowk.reset_launch_counts()
     m = drive_engines(gpu, cpu, batches, key_cfg, True, spent)
     launches = {**dk.launch_counts, **rowk.launch_counts}
+    pinned = dict(rowk.pinned_counts)
     check(fast["taken"] > 0, "no window took the fast path")
     check(launches["inject_rows"] > 0 and launches["gather_rows"] > 0,
           f"the lone path launched no row kernel: {launches}")
+    for name in ("inject_rows", "gather_rows"):
+        check(pinned[name] == launches[name],
+              f"{name}: {launches[name]} launches, {pinned[name]} through the pinned entry point")
+    check(injected["calls"] == launches["inject_rows"],
+          f"{injected['calls']} injects with rows, {launches['inject_rows']} inject launches")
     stats = gpu.stats.as_dict()
     stage_s = {s: stats[f"{s}_ns"] / 1e9 for s in gpu.stats.STAGES}
     rate = m["n_req"] / m["gpu_s"]
@@ -577,7 +608,9 @@ def phase_engine(seed, n_windows, dev, results):
         stage_s=stage_s,
         lone_per_s=m["lone_calls"] / m["lone_s"] if m["lone_s"] else None,
         launches_per_window={k: v / n_windows for k, v in launches.items()},
-        keys=gpu.key_count(), launches=launches)
+        keys=gpu.key_count(), launches=launches, pinned_launches=pinned,
+        inject_calls=injected["calls"], inject_rows=injected["rows"],
+        inject_apply_us=injected["s"] / injected["calls"] * 1e6)
     seed_calls = m["seed_calls"]
     results["engine"]["seed_mirror_us"] = m["seed_s"] / seed_calls * 1e6
     tlog(f"  equal responses, lone responses, tables and stats; card engine {rate:,.0f} "
@@ -596,6 +629,9 @@ def phase_engine(seed, n_windows, dev, results):
          f"{m['seed_s'] / seed_calls * 1e6:.1f} us per call through the pinned gather; "
          f"native_singles {stats['native_singles']}; {gpu.key_count()} keys; "
          f"launches {launches}")
+    tlog(f"  injects: {injected['calls']} Engine._apply_inject_rows calls with rows "
+         f"({injected['rows']} rows), {injected['s'] / injected['calls'] * 1e6:.2f} us per "
+         f"call on the host clock; pinned launches {pinned}")
     # the lone path's host split, after every check above: it re-seeds
     # mirrors from the table and so leaves the two engines apart
     hot = [r.hash_key() for r in lone_requests(batches[-1][0], key_cfg)]
@@ -841,10 +877,136 @@ def gather_stimulus(rng, C, m, device):
     return torch.from_numpy(s).to(device)
 
 
-def timed_kernel(run_k, run_p, run_lib, kernel_name, iters=64):
-    return dict(ms=profiled_ms(run_k, 32, kernel_name), call_ms=event_ms(run_k, iters),
-                plain_ms=event_ms(run_p, 8), library_ms=event_ms(run_lib, iters),
-                library_device_ms=profiled_ms(run_lib, 32))
+def in_turns(measure, run_a, run_b):
+    """measure(run_a) and measure(run_b) taken in turns a, b, b, a; the mean
+    of each pair, so neither side gains from going first."""
+    a0, b0, b1, a1 = measure(run_a), measure(run_b), measure(run_b), measure(run_a)
+    return (a0 + a1) / 2, (b0 + b1) / 2
+
+
+def timed_kernel(run_k, run_p, run_lib, kernel_name, iters=64, flush=None):
+    """Device ms (profiler) of the kernel and of the library call, each
+    session after flush() when given; call ms of both (CUDA events, back to
+    back) in turns; the plain version's ms."""
+    def profiled(run, name):
+        if flush is not None:
+            flush()
+        return profiled_ms(run, 32, name)
+
+    call_ms, library_ms = in_turns(lambda f: event_ms(f, iters), run_k, run_lib)
+    return dict(ms=profiled(run_k, kernel_name), call_ms=call_ms,
+                plain_ms=event_ms(run_p, 8), library_ms=library_ms,
+                library_device_ms=profiled(run_lib, None))
+
+
+def index_copy_rows(st, C):
+    """The yardstick's operands for inject rows `st` (i64[m, 8], on the card):
+    the kept slots and the rows as the inject writes them, for one
+    index_copy_."""
+    keep = (st[:, 0] >= 0) & (st[:, 0] < C)
+    r = torch.cat([st[:, 1:2].to(torch.int32).to(torch.int64), st[:, 2:7],
+                   st[:, 7:8].to(torch.int32).to(torch.int64), torch.zeros_like(st[:, :1])], 1)
+    return st[keep, 0].contiguous(), r[keep].contiguous()
+
+
+def pinned_inject(rng, kern, plain, dev):
+    """The inject's pinned form, as the engine runs it: the rows in the
+    page-locked staging (rowk.InjectStaging), read by the kernel through
+    their mapped address. An unpinned host inject is refused; bit-equal to
+    inject_rows_plain at every m of INJECT_M (dropped and int32-overflowing
+    lanes); then timed: device ms per launch (torch.profiler) and, on the
+    host clock, ms per round trip from a numpy i64[m, 8] to the rows in the
+    table (copied into the staging, launched, one wait on the stream) as
+    call_ms, beside the plain version and the yardstick
+    torch.from_numpy(a).to(dev) followed by index_copy_ of the prepared rows,
+    with the same wait. Returns records and the largest difference."""
+    C, index = kern.shape[0], kern.get_device()
+    staging = rowk.InjectStaging.allocate(max(INJECT_M), dev)
+    try:  # pageable host memory has no device address
+        rowk.inject_rows_cuda(kern, torch.zeros((1, rowk.ROW_FIELDS), dtype=torch.int64))
+    except ValueError as e:
+        check("page-locked" in str(e), f"unpinned inject: wrong refusal {e}")
+    else:
+        check(False, "pinned inject took an unpinned host inject")
+    recs, err = [], 0
+    for m in INJECT_M:
+        host = [inject_stimulus(rng, C, m, "cpu").numpy() for _ in range(16)]
+        on_card = [torch.from_numpy(a).to(dev) for a in host]
+        plain.copy_(kern)
+        for a, d in zip(host[:4], on_card[:4]):
+            staging.free()[:m] = a
+            staging.launch(kern, m)
+            rowk.inject_rows_plain(plain, d)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(kern, plain))
+        check(torch.equal(kern, plain), f"pinned inject m={m}: tables differ")
+        lib_in = [index_copy_rows(d, C) for d in on_card]
+
+        def run_k(i):
+            staging.launch(kern, m)
+
+        def round_trip(i):
+            staging.inject(kern, host[i % 16])
+            rowk.sync_stream(index)
+
+        def run_lib(i):
+            torch.from_numpy(host[i % 16]).to(dev)
+            plain.index_copy_(0, *lib_in[i % 16])
+            rowk.sync_stream(index)
+
+        def run_p(i):
+            rowk.inject_rows_plain(plain, torch.from_numpy(host[i % 16]).to(dev))
+            rowk.sync_stream(index)
+
+        b_ms, b_by = bound_ms(m * 128, 0)
+        call_us, lib_us = in_turns(lambda f: host_us(f, 2000), round_trip, run_lib)
+        recs.append(dict(
+            kernel="inject_rows", form="pinned", m=m, ms=profiled_ms(run_k, 32, "inject_kernel"),
+            call_ms=call_us / 1e3, plain_ms=host_us(run_p, 200) / 1e3,
+            library_ms=lib_us / 1e3, library_device_ms=profiled_ms(run_lib, 32),
+            library="torch.from_numpy(a).to(dev) + index_copy_", bound_ms=b_ms, bound_by=b_by,
+            bytes=m * 128))
+    plain.copy_(kern)
+    return recs, err, staging
+
+
+def inject_reuse(rng, kern, plain, staging, dev):
+    """REUSE_INJECTS pinned injects of LONE_KEYS rows from one staging
+    buffer, back to back behind a stream kept busy for about a millisecond:
+    before each, the host writes new rows into staging.free() (which waits
+    on the staging's event for the inject before) and launches, with no wait
+    of its own. The table must equal the plain version's after the same
+    injects in order. The same sequence with the rows written straight into
+    the buffer, skipping free()'s wait, is logged beside it: it shows
+    whether the hazard the wait guards against occurs on this card."""
+    C, m = kern.shape[0], LONE_KEYS
+    seq = [inject_stimulus(rng, C, m, "cpu").numpy() for _ in range(REUSE_INJECTS)]
+    plain.copy_(kern)
+    unguarded = kern.clone()
+    for guarded in (True, False):
+        table = kern if guarded else unguarded
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)  # the injects queue behind ~1 ms of work
+        for a in seq:
+            buf = staging.free() if guarded else staging.rows_np
+            buf[:m] = a
+            if guarded:
+                staging.launch(table, m)
+            else:
+                rowk.inject_rows_pinned(table, staging.rows, m, None)
+        torch.cuda.synchronize()
+    for a in seq:
+        rowk.inject_rows_plain(plain, torch.from_numpy(a).to(dev))
+    torch.cuda.synchronize()
+    err = max_abs_err(kern, plain)
+    check(torch.equal(kern, plain), "inject reuse: the staging was rewritten under a "
+          "launched inject (tables differ)")
+    hazard = not torch.equal(unguarded, plain)
+    del unguarded
+    log(f"  inject reuse: {REUSE_INJECTS} pinned injects of {m} rows from one staging, "
+        f"behind a busy stream: table equal to the plain version's; without the "
+        f"staging's wait the table {'differs' if hazard else 'is equal too'}")
+    return err, hazard
 
 
 def pinned_gather(rng, kern, dev):
@@ -901,13 +1063,14 @@ def pinned_gather(rng, kern, dev):
             return out_np.tolist()
 
         b_ms, b_by = bound_ms(m * (4 + 56 + 56), 0)
+        call_us, lib_us = in_turns(lambda f: host_us(f, 2000), round_trip, run_lib)
         recs.append(dict(
             kernel="gather_rows", form="pinned", m=m, ms=profiled_ms(run_k, 32, "gather_kernel"),
-            call_ms=host_us(round_trip, 2000) / 1e3,
+            call_ms=call_us / 1e3,
             plain_ms=host_us(lambda i: rowk.gather_rows_plain(kern, idx[i % 16]).tolist(),
                              200) / 1e3,
-            library_ms=host_us(run_lib, 2000) / 1e3, library_device_ms=profiled_ms(run_lib, 32),
-            bound_ms=b_ms, bound_by=b_by, bytes=m * 116))
+            library_ms=lib_us / 1e3, library_device_ms=profiled_ms(run_lib, 32),
+            library="state[slot, :7].tolist()", bound_ms=b_ms, bound_by=b_by, bytes=m * 116))
     return recs, err
 
 
@@ -929,20 +1092,21 @@ def phase_rows(seed, dev, results):
         errs["inject_rows"] = max(errs["inject_rows"], max_abs_err(kern, plain))
         check(torch.equal(kern, plain), f"inject m={m}: tables differ")
         # the yardstick: one index_copy_ of the prepared rows at the kept slots
-        lib_in = []
-        for st in stims:
-            keep = (st[:, 0] >= 0) & (st[:, 0] < C)
-            r = torch.cat([st[:, 1:2].to(torch.int32).to(torch.int64), st[:, 2:7],
-                           st[:, 7:8].to(torch.int32).to(torch.int64),
-                           torch.zeros_like(st[:, :1])], 1)
-            lib_in.append((st[keep, 0].contiguous(), r[keep].contiguous()))
+        lib_in = [index_copy_rows(st, C) for st in stims]
         t = timed_kernel(lambda i: rowk.inject_rows_cuda(kern, stims[i % 16]),
                          lambda i: rowk.inject_rows_plain(plain, stims[i % 16]),
                          lambda i: plain.index_copy_(0, *lib_in[i % 16]),
                          "inject_kernel")
         b_ms, b_by = bound_ms(m * 128, 0)
-        recs.append(dict(kernel="inject_rows", m=m, bound_ms=b_ms, bound_by=b_by,
-                         bytes=m * 128, **t))
+        recs.append(dict(kernel="inject_rows", form="device", m=m, library="index_copy_",
+                         bound_ms=b_ms, bound_by=b_by, bytes=m * 128, **t))
+    pinned, errs["inject_rows_pinned"], staging = pinned_inject(rng, kern, plain, dev)
+    recs += pinned
+    errs["inject_reuse"], results["inject_reuse_hazard"] = inject_reuse(
+        rng, kern, plain, staging, dev)
+    errs["inject_rows"] = max(errs["inject_rows"], errs["inject_rows_pinned"],
+                              errs["inject_reuse"])
+    del staging
     plain.copy_(kern)
     for m in GATHER_M:
         stims = [gather_stimulus(rng, C, m, dev) for _ in range(16)]
@@ -956,8 +1120,8 @@ def phase_rows(seed, dev, results):
                          lambda i: torch.index_select(kern, 0, lib_idx[i % 16]),
                          "gather_kernel")
         b_ms, b_by = bound_ms(m * (4 + 56 + 56), 0)
-        recs.append(dict(kernel="gather_rows", form="device", m=m, bound_ms=b_ms,
-                         bound_by=b_by, bytes=m * 116, **t))
+        recs.append(dict(kernel="gather_rows", form="device", m=m, library="index_select",
+                         bound_ms=b_ms, bound_by=b_by, bytes=m * 116, **t))
     pinned, errs["gather_rows_pinned"] = pinned_gather(rng, kern, dev)
     recs += pinned
     errs["gather_rows"] = max(errs["gather_rows"], errs["gather_rows_pinned"])
@@ -974,35 +1138,41 @@ def phase_rows(seed, dev, results):
             for _ in range(16)]
     kern[sets[0][:4].to(torch.int64)] = torch.iinfo(torch.int32).max  # the +1 wraps
     plain = kern.clone()
-    for s in sets[:4]:
-        out_k, out_p = rowk.row_bump_cuda(kern, s), rowk.row_bump_plain(plain, s)
+    out = torch.full((1,), -7, dtype=torch.int32, device=dev)  # the caller's out
+    for j, s in enumerate(sets[:4]):
+        out_k = rowk.row_bump_cuda(kern, s, out if j % 2 else None)
+        out_p = rowk.row_bump_plain(plain, s)
         torch.cuda.synchronize()
+        check(out_k is out if j % 2 else out_k is not out, "row_bump: out not used as given")
         errs["row_bump"] = max(errs["row_bump"], max_abs_err(kern, plain),
                                max_abs_err(out_k, out_p))
         check(torch.equal(out_k, out_p), "row_bump: outputs differ")
         check(torch.equal(kern, plain), "row_bump: tables differ")
     ones = torch.ones((B, 128), dtype=torch.int32, device=dev)
     idx = [s.to(torch.int64) for s in sets]
-    # 16 slot sets cycled: 64 MB of rows, more than the 50 MB L2
-    t = timed_kernel(lambda i: rowk.row_bump_cuda(kern, sets[i % 16]),
-                     lambda i: rowk.row_bump_plain(plain, sets[i % 16]),
-                     lambda i: kern.index_add_(0, idx[i % 16], ones), "row_bump_kernel")
+    # 16 slot sets cycled: 64 MB of rows, more than the 50 MB L2; and 128 MB
+    # written before each profiled session, so that neither session finds
+    # rows the other left in L2
+    scratch = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    t = timed_kernel(lambda i: rowk.row_bump_cuda(kern, sets[i % 16], out),
+                     lambda i: rowk.row_bump_plain(plain, sets[i % 16], out),
+                     lambda i: kern.index_add_(0, idx[i % 16], ones), "row_bump_kernel",
+                     flush=lambda: scratch.fill_(0))
     n_bytes = B * 512 * 2 + B * 4 + 4
     b_ms, b_by = bound_ms(n_bytes, B * 128)
-    recs.append(dict(kernel="row_bump", m=B, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-                     **t))
-    del kern, plain, ones, idx, sets
+    recs.append(dict(kernel="row_bump", form="device", m=B, library="index_add_",
+                     bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, **t))
+    del kern, plain, ones, idx, sets, out, scratch
     torch.cuda.empty_cache()
     for r in recs:
-        if r.get("form") == "pinned":
-            how = ("per round trip on the host clock (launch, wait, rows read); plain "
-                   f"{r['plain_ms']:.4f} ms, yardstick state[slot, :7].tolist() "
+        if r["form"] == "pinned":
+            how = ("per round trip on the host clock (rows in or out of page-locked memory, "
+                   f"launch, wait); plain {r['plain_ms']:.4f} ms, yardstick {r['library']} "
                    f"{r['library_ms']:.4f} ms, the same")
         else:
-            how = (f"per wrapper call; plain {r['plain_ms']:.4f} ms; library "
+            how = (f"per wrapper call; plain {r['plain_ms']:.4f} ms; library {r['library']} "
                    f"{r['library_ms']:.4f} ms per call")
-        form = f" ({r['form']})" if "form" in r else ""
-        tlog(f"  {r['kernel']:11s}{form} m={r['m']:5d}: bit-equal; kernel {fms(r['ms'])} ms on "
+        tlog(f"  {r['kernel']:11s} ({r['form']}) m={r['m']:5d}: bit-equal; kernel {fms(r['ms'])} ms on "
              f"the device, {r['call_ms']:.4f} ms {how}, {fms(r['library_device_ms'])} ms on "
              f"the device; bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
 
@@ -1085,13 +1255,13 @@ def main(argv=None) -> int:
         check(n > 0, f"{name} was never launched on its main path")
         r = next(r for r in row_recs if r["kernel"] == name
                  and r["m"] == ROW_MAIN_M.get(name, r["m"])
-                 and r.get("form", "pinned") == "pinned")  # the lone path's gather
+                 and r["form"] == ROW_MAIN_FORM[name])
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=n, max_abs_err=row_errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             library_device_ms=r["library_device_ms"], call_ms=r["call_ms"],
-            shape=f"m={r['m']}" + (", pinned" if r.get("form") == "pinned" else "")))
+            shape=f"m={r['m']}, {r['form']}"))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -8,7 +8,8 @@ of BATCH distinct random rows per call, in place, through the row_bump
 kernel (csrc/rows.cu, via ops/rows.py). Four slot sets are drawn as the
 original draws them (np.random.RandomState(5), replace=False); one warm
 call, one timed call to size the loop, then a loop of about TARGET_S
-seconds. Prints one JSON line: variant, rows_per_s, iters and the card's
+seconds. slots[0] comes back in one i32[1] allocated once, outside the
+loop. Prints one JSON line: variant, rows_per_s, iters and the card's
 name. Runs on the card unless the caller of run() asks for the CPU.
 """
 
@@ -41,17 +42,18 @@ def run(device=None, cap: int = CAP, batch: int = BATCH,
     table = torch.zeros((cap, BUMP_ROW), dtype=torch.int32, device=dev)
     slot_sets = [torch.from_numpy(rng.choice(cap, batch, replace=False)
                                   .astype(np.int32)).to(dev) for _ in range(4)]
-    out = row_bump(table, slot_sets[0])
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    row_bump(table, slot_sets[0], out)
     _ = int(out[0])
     t0 = time.perf_counter()
-    out = row_bump(table, slot_sets[1])
+    row_bump(table, slot_sets[1], out)
     _ = int(out[0])
     per_call = max(time.perf_counter() - t0, 1e-6)
     iters = max(4, min(400, int(target_s / per_call)))
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(iters):
-        out = row_bump(table, slot_sets[i % 4])
+        row_bump(table, slot_sets[i % 4], out)
     _ = int(out[0])
     el = time.perf_counter() - t0
     return {

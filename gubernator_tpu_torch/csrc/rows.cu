@@ -9,10 +9,16 @@
 //   table IN PLACE: algo and status are truncated through int32, field 7 is
 //   zeroed, and a slot outside [0, C) is dropped. The rows of one call target
 //   distinct slots (the key directory clears a mirror's dirty flag as it
-//   emits the row), so no atomics are needed. One thread per row field: eight
-//   neighbouring threads write one 64-byte row.
-//   Bound: memory, m * 128 bytes (each inject row read once, each table row
-//   written once); at the engine's m <= a few dozen rows the launch dominates.
+//   emits the row), so no atomics are needed.
+//   Bound: memory, m * 128 bytes; at the engine's m <= a few dozen rows the
+//   launch dominates, and the engine's rows lie in page-locked host memory
+//   (inject_rows_pinned_launch), where each read crosses the host link. So
+//   every input word is read exactly once, in one coalesced load: one thread
+//   per row field, eight neighbouring threads on one 64-byte row; the slot
+//   and the next field come from the row's lane 0 and the next lane by
+//   shuffle, not by second reads (on an H100 the pinned launch takes
+//   2.3-2.6 us at m <= 64 this way, against 3.5-4.1 us with the second read
+//   and 3.5-4.3 us with one thread per row and four 16-byte loads).
 //
 // gather_rows: replaces `_gather_rows` (:86, jitted at :137). Reads the 7
 //   row fields at each slot, clamped to [0, C-1] (jnp.maximum(slot, 0) and
@@ -29,13 +35,25 @@
 //
 // row_bump: replaces the Pallas kernel scripts/bench_pallas_rows.py `kernel`
 //   (:36, pallas_call at :89), the row-access probe: +1 to every element of
-//   B distinct rows of an int32[N, 128] table, in place, returning slots[0].
-//   The Pallas kernel keeps DEPTH = 16 row DMAs in flight because one TPU core
-//   issues them in order; here one warp owns one 512-byte row, each lane
-//   loading and storing one 16-byte int4, and the thousands of warps in
-//   flight hide the memory latency. A slot outside [0, N) is dropped. Adds
-//   wrap, as uint32_t. Bound: memory, B * 512 * 2 bytes (8.39 MB at B = 8192,
-//   2.50 us at 3.35 TB/s), plus the slots.
+//   B distinct rows of an int32[N, 128] table, in place, returning slots[0]
+//   (written by exactly one thread). A slot outside [0, N) is dropped. Adds
+//   wrap, as uint32_t. Bound: memory, B * 512 * 2 bytes (8.39 MB at
+//   B = 8192, 2.50 us at 3.35 TB/s), plus the slots. The Pallas kernel keeps
+//   DEPTH = 16 row DMAs in flight because one TPU core issues them in order;
+//   here one warp owns one 512-byte row, each lane loading and storing one
+//   16-byte int4, and all B rows are in flight at once in one wave of warps.
+//   What holds it near 5.3 us instead, on an H100 at B = 8192 on the 5.12 GB
+//   table: the launch of its warps 1.4-1.5 us, the slot reads +0.3, the
+//   random 512-byte row reads +2.1, the stores +1.3 (device time of the
+//   kernel with parts dropped). Rows drawn from 512 MB instead of 5.12 GB
+//   save 2-3%, so address translation is not it; on 4 MB of rows that stay
+//   in L2 it takes 2.3 us, so the DRAM side of random rows is. More rows in
+//   flight per warp (2-32, their slots read in one load and shuffled out),
+//   a grid sized to the SMs that loops, or the Pallas design itself (whole
+//   rows into shared memory by 1-D bulk copies on an mbarrier, DEPTH 4-32,
+//   and bulk stores) all took 5.26-5.70 us with L2 flushed before each
+//   measurement, against 5.27-5.43 us for this one: none beat it by more
+//   than the spread, so it stays.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,25 +64,28 @@ constexpr int kRowFields = 8;
 constexpr int kGatherFields = 7;
 constexpr int kBumpRowInt4 = 32;  // 128 int32 = 32 int4 = one per lane
 constexpr int kGatherThreads = 64;
+constexpr int kInjectThreads = 256;  // whole warps: a row's lanes share one
 
 __global__ void inject_kernel(int64_t* __restrict__ state, int64_t C,
                               const int64_t* __restrict__ inject, int m) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(m) * kRowFields) return;
-  const int64_t r = t / kRowFields;
-  const int f = static_cast<int>(t % kRowFields);
-  const int64_t* in = inject + r * kRowFields;
-  const int64_t slot = in[0];
-  if (slot < 0 || slot >= C) return;
-  int64_t v;
+  const bool live = t < static_cast<int64_t>(m) * kRowFields;
+  const int64_t v = live ? inject[t] : 0;
+  // blocks are whole warps, so a row's eight fields share a warp
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = __shfl_sync(0xffffffffu, v, lane & ~(kRowFields - 1));
+  const int64_t next = __shfl_down_sync(0xffffffffu, v, 1);
+  if (!live || slot < 0 || slot >= C) return;
+  const int f = lane & (kRowFields - 1);
+  int64_t w;
   if (f == 7) {
-    v = 0;
+    w = 0;
   } else if (f == 0 || f == 6) {
-    v = static_cast<int64_t>(static_cast<int32_t>(static_cast<uint32_t>(in[f + 1])));
+    w = static_cast<int64_t>(static_cast<int32_t>(static_cast<uint32_t>(next)));
   } else {
-    v = in[f + 1];
+    w = next;
   }
-  state[slot * kRowFields + f] = v;
+  state[slot * kRowFields + f] = w;
 }
 
 __global__ void gather_kernel(const int64_t* __restrict__ state, int64_t C,
@@ -107,6 +128,20 @@ int set_device(int device) {
   return static_cast<int>(err);
 }
 
+// Launch the inject on `stream`, then record `done` there when it is given.
+int launch_inject(void* state, long long C, const void* inject, int m, void* stream,
+                  void* done) {
+  const long long total = static_cast<long long>(m) * kRowFields;
+  inject_kernel<<<static_cast<int>((total + kInjectThreads - 1) / kInjectThreads),
+                  kInjectThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int64_t*>(state), C, static_cast<const int64_t*>(inject), m);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && done != nullptr) {
+    err = cudaEventRecord(static_cast<cudaEvent_t>(done), static_cast<cudaStream_t>(stream));
+  }
+  return static_cast<int>(err);
+}
+
 void launch_gather(const void* state, long long C, const void* slot, int m, void* out,
                    void* stream) {
   gather_kernel<<<(m + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
@@ -124,12 +159,26 @@ extern "C" int inject_rows_launch(int device, void* state, long long C,
                                   const void* inject, int m, void* stream) {
   int err = set_device(device);
   if (err != 0) return err;
-  const int threads = 256;
-  const long long total = static_cast<long long>(m) * kRowFields;
-  const int blocks = static_cast<int>((total + threads - 1) / threads);
-  inject_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int64_t*>(state), C, static_cast<const int64_t*>(inject), m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_inject(state, C, inject, m, stream, nullptr);
+}
+
+// The same inject with `inject` (i64[m, 8]) in page-locked host memory,
+// passed to the kernel as the device address cudaHostGetDevicePointer gives
+// for it; `done`, when not null, is a cudaEvent_t recorded on `stream` after
+// the launch (the engine waits on it before it rewrites those rows).
+// Returns cudaHostGetDevicePointer's error when the address does not
+// resolve (memory that is not page-locked), else as inject_rows_launch.
+extern "C" int inject_rows_pinned_launch(int device, void* state, long long C,
+                                         void* inject, int m, void* stream, void* done) {
+  int err = set_device(device);
+  if (err != 0) return err;
+  void* inject_dev = nullptr;
+  const cudaError_t e = cudaHostGetDevicePointer(&inject_dev, inject, 0);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // not a launch error: leave no stale error behind
+    return static_cast<int>(e);
+  }
+  return launch_inject(state, C, inject_dev, m, stream, done);
 }
 
 extern "C" int gather_rows_launch(int device, const void* state, long long C,

@@ -20,12 +20,17 @@ its request-object path. The engine owns:
   injects the mirror's row back into the table first.
 
 On CUDA every window is one host-to-device copy of its staging, one launch
-of csrc/decide.cu and one copy of the response back; mirror rows go in
-through csrc/rows.cu's inject. seed_mirror's one-slot gather reads its slot
-from, and writes its row to, two page-locked host buffers the engine
-allocates once: no copy either way, one wait on the stream. On the CPU the
-same path runs the plain PyTorch versions. The engine is synchronous and
-thread-safe through one lock.
+of csrc/decide.cu and one copy of the response back. Mirror rows go in
+through csrc/rows.cu's inject with no copy: the key directory writes them
+into a page-locked i64[max_width, 8] buffer the engine allocates once
+(ops/rows.py InjectStaging), and the kernel reads them there through its
+mapped address; the buffer is handed to the directory again only after the
+last inject that reads it has run (an event per inject), since a scan group
+may look up, and inject, many windows before its one wait. seed_mirror's
+one-slot gather reads its slot from, and writes its row to, two page-locked
+host buffers the engine allocates once: no copy either way, one wait on the
+stream. On the CPU the same path runs the plain PyTorch versions. The engine
+is synchronous and thread-safe through one lock.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from gubernator_tpu_torch.ops.decide import (
 )
 from gubernator_tpu_torch.ops.rows import (
     GATHER_FIELDS,
+    InjectStaging,
     gather_rows,
     inject_rows,
     sync_stream,
@@ -156,14 +162,19 @@ class Engine:
         # "auto" ships each window on the leanest eligible format; "wide"
         # pins the i64[9] format
         self._staging = staging_policy()
-        # On CUDA, the lone path's page-locked slot and row, allocated once
-        # (a failed allocation raises)
+        # On CUDA, the lone path's page-locked slot and row, and the inject
+        # staging, allocated once (a failed allocation raises). Every inject
+        # fits the staging: the fast window looks up at most len(requests)
+        # <= max_width keys and the python pipeline at most one window of
+        # max_width, and a lookup emits at most one row per key.
         self._lone: Optional[LoneBuffers] = None
+        self._inject: Optional[InjectStaging] = None
         if self.device.type == "cuda":
             slot = torch.empty(1, dtype=torch.int32, pin_memory=True)
             row = torch.empty((GATHER_FIELDS, 1), dtype=torch.int64, pin_memory=True)
             self._lone = LoneBuffers(slot, row, slot.numpy(), row.numpy()[:, 0],
                                      self.state.get_device())
+            self._inject = InjectStaging.allocate(self.max_width, self.device)
 
     # ------------------------------------------------------------------ API
 
@@ -206,8 +217,12 @@ class Engine:
                                                 self._up(ln[1]), 0)
                 k *= 2
             self._gather_row(0)
-            warm_inject = np.zeros((1, 8), np.int64)
-            warm_inject[0, 0] = -1  # dropped lane: build, mutate nothing
+            # one dropped lane, where a lookup writes its rows: builds the
+            # inject, mutates nothing
+            warm_inject = self._inject_rows_out()
+            warm_inject = (np.zeros((1, 8), np.int64) if warm_inject is None
+                           else warm_inject[:1])
+            warm_inject[0] = [-1, 0, 0, 0, 0, 0, 0, 0]
             self._apply_inject_rows(warm_inject)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -319,7 +334,7 @@ class Engine:
         with self._lock:
             t0 = time.perf_counter_ns()  # excludes the lock wait
             n0, lane_item, leftover, inject = self._prep_fast(
-                self.directory, requests, packed, _GREG_MASK)
+                self.directory, requests, packed, _GREG_MASK, self._inject_rows_out())
             if n0 == native.PREP_OVERCOMMIT:
                 # mirror rows collected before the abort must still land
                 self._apply_inject_rows(inject)
@@ -361,15 +376,26 @@ class Engine:
 
     # --------------------------------------------- native lone-request path
 
+    def _inject_rows_out(self) -> Optional[np.ndarray]:
+        """Where a lookup writes its dirty-mirror rows: the page-locked
+        staging on CUDA, once no launched inject reads it any more; None
+        (the binding allocates) on the CPU. Caller holds the engine lock."""
+        return None if self._inject is None else self._inject.free()
+
     def _apply_inject_rows(self, inject) -> None:
         """Scatter reconciled mirror rows i64[m, 8] (slot, algo, limit,
         remaining, duration, stamp, expire_at, status) into the table BEFORE
-        the window whose lookup surfaced them: the copy up is synchronous and
-        the inject launches on the stream the decide launch follows on.
+        the window whose lookup surfaced them: the inject launches on the
+        stream the decide launch follows on. On CUDA `inject` is always the
+        first rows of the page-locked staging, where the lookup wrote them
+        into _inject_rows_out(): the kernel reads them there, no copy up.
         Caller holds the engine lock."""
         if inject is None or len(inject) == 0:
             return
-        inject_rows(self.state, self._up(inject))
+        if self._inject is None:
+            inject_rows(self.state, self._up(inject))
+        else:
+            self._inject.launch(self.state, len(inject))
 
     def decide_native_single(self, req: RateLimitReq,
                              now_ms: int = 0) -> Optional[RateLimitResp]:
@@ -452,7 +478,7 @@ class Engine:
 
     def _lookup(self, round_work):
         keys = [item[1].hash_key() for item in round_work]
-        slots, fresh, inj = self.directory.lookup_inject(keys)
+        slots, fresh, inj = self.directory.lookup_inject(keys, self._inject_rows_out())
         self._apply_inject_rows(inj)
         return slots, fresh
 

@@ -35,10 +35,11 @@ class KeyDirectory:
     def __contains__(self, key: str) -> bool:
         return key in self._map
 
-    def lookup_inject(self, keys: Sequence[str]):
+    def lookup_inject(self, keys: Sequence[str], inject=None):
         """Native-API twin: (slots, fresh, inject). The python directory
         has no row mirrors (the native lone-request fast path lives in
-        keydir.cpp), so the inject list is always empty."""
+        keydir.cpp), so the inject list is always empty and a caller's
+        `inject` array is never written."""
         slots, fresh = self.lookup(keys)
         import numpy as np
 

@@ -103,11 +103,28 @@ PREP_FALLBACK = -1
 PREP_OVERCOMMIT = -2
 
 
+def _inject_out(inject: Optional[np.ndarray], n: int) -> np.ndarray:
+    """Where the C call writes up to n dirty-mirror rows: the caller's
+    array (a C-contiguous i64[R, 8] with R >= n, checked), or a new
+    i64[n, 8]."""
+    if inject is None:
+        return np.empty((n, 8), np.int64)
+    if (inject.dtype != np.int64 or inject.ndim != 2 or inject.shape[1] != 8
+            or inject.shape[0] < n or not inject.flags.c_contiguous):
+        raise ValueError(f"inject must be a C-contiguous i64[>= {n}, 8], got "
+                         f"{inject.dtype}{inject.shape}")
+    return inject
+
+
 def prep_pack_fast(directory: "NativeKeyDirectory", requests,
-                   packed: np.ndarray, greg_mask: int):
+                   packed: np.ndarray, greg_mask: int,
+                   inject: Optional[np.ndarray] = None):
     """One-pass native window prep: validate + first-occurrence round split
     + directory lookup + pack in one C call. `packed` must be a zeroed
-    C-contiguous i64[9, width].
+    C-contiguous i64[9, width]. The inject rows are written into `inject`
+    when given (a C-contiguous i64[R, 8] of at least min(len(requests),
+    width) rows: the engine's page-locked staging), else into a new array;
+    either way the returned `inject` is a view of the first rows.
 
     Returns (n0, lane_item, leftover, inject): n0 lanes packed (lane j
     answers requests[lane_item[j]]), with `leftover` the item indices the
@@ -128,7 +145,7 @@ def prep_pack_fast(directory: "NativeKeyDirectory", requests,
     lane_item = np.empty(width, np.int32)
     leftover = np.empty(n, np.int32)
     n_left = np.zeros(1, np.int32)
-    inject = np.empty((n, 8), np.int64)
+    inject = _inject_out(inject, min(n, width))  # C writes none past `width` lanes
     n_inj = np.zeros(1, np.int32)
     n0 = lib.keydir_prep_pack_fast(
         directory._kd, requests, packed.ctypes.data, width, greg_mask,
@@ -192,15 +209,17 @@ class NativeKeyDirectory:
         slots, fresh, _inject = self.lookup_inject(keys)
         return slots, fresh
 
-    def lookup_inject(self, keys: Sequence[str]):
+    def lookup_inject(self, keys: Sequence[str], inject: Optional[np.ndarray] = None):
         """lookup() + the dirty-mirror rows (i64[m, 8]: slot + 7 row
         values) that must be scattered into the device table BEFORE the
-        window these slots feed."""
+        window these slots feed. The rows are written into `inject` when
+        given (a C-contiguous i64[R, 8], R >= len(keys)), else into a new
+        array; the returned rows are a view of its first m."""
         data, offsets = _pack_keys(keys)
         n = len(keys)
         slots = np.empty(n, np.int32)
         fresh = np.empty(n, np.uint8)
-        inject = np.empty((n, 8), np.int64)
+        inject = _inject_out(inject, n)
         n_inj = np.zeros(1, np.int32)
         done = self._lib.keydir_lookup_batch(
             self._kd, data, offsets.ctypes.data, n,

@@ -72,17 +72,16 @@ def cuda_index(t: torch.Tensor, what: str) -> int:
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,
           dims: Sequence[Optional[int]], index: int) -> None:
     """Raise ValueError unless `t` is a contiguous `dtype` tensor with one
-    dimension per entry of `dims` (an int the size must equal, or None for
-    any size) on card `index`, or, for index HOST, in host memory."""
-    here = not t.is_cuda if index == HOST else t.get_device() == index
-    if here and t.dtype is dtype and t.ndim == len(dims) and t.is_contiguous():
-        i = 0
-        for d in dims:
-            if d is not None and t.size(i) != d:
-                break
-            i += 1
-        else:
-            return
+    dimension per entry of `dims` (one or two entries: an int the size must
+    equal, or None for any size) on card `index`, or, for index HOST, in
+    host memory. One expression over t.shape, read once: Tensor.size(i)
+    costs about three times as much as a tuple index."""
+    shape = t.shape
+    if ((not t.is_cuda if index == HOST else t.get_device() == index)
+            and t.dtype is dtype and len(shape) == len(dims) and t.is_contiguous()
+            and (dims[0] is None or shape[0] == dims[0])
+            and (len(dims) == 1 or dims[1] is None or shape[1] == dims[1])):
+        return
     _refuse(t, what, dtype, dims, index)
 
 

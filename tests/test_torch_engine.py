@@ -301,3 +301,89 @@ def test_seed_mirror_edge_rows_match_jax(monkeypatch, directory):
             g1 = teng.get_rate_limits([RateLimitReq(**f)], now_ms=t)[0]
         assert _resp_tuple(g1) == _resp_tuple(w1)
     _assert_same_end_state(jeng, teng)
+
+
+class _StagingEvent:
+    """The inject staging's event on the CPU: synchronize() stands where the
+    card would have finished the last inject, and checks that the rows that
+    inject read were not rewritten before it."""
+
+    def __init__(self):
+        self.cuda_event = 1
+        self.launched = None
+
+    def synchronize(self):
+        if self.launched is not None:
+            view, seen = self.launched
+            np.testing.assert_array_equal(view, seen)
+            self.launched = None
+
+
+@pytest.mark.parametrize("staging", ["allocated", "reused"])
+def test_scan_group_injects_match_jax(monkeypatch, staging):
+    """Several windows of one scan group each surface dirty mirrors, so
+    several injects run before the group's one fetch. Engines with
+    min_width = max_width = 8 on the native directory: 40 keys get rows,
+    mirrors and native decisions (dirty mirrors); then a batch of those 40
+    keys and a few duplicates (wider than max_width: the python pipeline)
+    splits round 0 into five windows of 8, one scan group, whose lookups
+    each inject up to 8 rows. Responses, lone responses, tables and stats
+    equal the JAX engine's. "reused": the port engine injects through an
+    InjectStaging of max_width rows (a CPU buffer whose launches run the
+    plain inject), the card's reuse rule, with every inject's rows checked
+    unchanged until the next wait on the staging."""
+    from gubernator_tpu import RateLimitReq as JReq
+    from gubernator_tpu_torch.ops import rows
+
+    jeng, teng = _engines(monkeypatch, "native", capacity=256, min_width=8, max_width=8)
+    if staging == "reused":
+        done = _StagingEvent()
+
+        def launch(state, buf, m, ev):
+            assert ev.launched is None, "the staging was handed out before the wait"
+            view = buf.numpy()[:m]
+            ev.launched = (view, view.copy())
+            rows.inject_rows_plain(state, buf[:m])
+
+        monkeypatch.setattr(rows, "inject_rows_pinned", launch)
+        teng._inject = rows.InjectStaging(torch.zeros((8, 8), dtype=torch.int64), done)
+    per_fetch, pending = [], [0]
+    apply_inject, fetch = teng._apply_inject_rows, teng._fetch_staged
+
+    def counted_inject(inject):
+        pending[0] += 0 if inject is None or len(inject) == 0 else 1
+        return apply_inject(inject)
+
+    def counted_fetch(handle):
+        per_fetch.append(pending[0])
+        pending[0] = 0
+        return fetch(handle)
+
+    monkeypatch.setattr(teng, "_apply_inject_rows", counted_inject)
+    monkeypatch.setattr(teng, "_fetch_staged", counted_fetch)
+    rng = np.random.RandomState(3)
+    keys = [dict(name="api", unique_key=f"key{k}", hits=1, limit=int(rng.choice([5, 50])),
+                 duration=60_000, algorithm=int(rng.randint(0, 2))) for k in range(40)]
+    now = NOW
+    for start in range(0, 40, 8):  # every key gets a row
+        batch = keys[start:start + 8]
+        want = jeng.get_rate_limits([JReq(**f) for f in batch], now_ms=now)
+        got = teng.get_rate_limits([RateLimitReq(**f) for f in batch], now_ms=now)
+        assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
+    for rnd in range(3):
+        now += 500
+        for f in keys:  # a mirror for every key, dirtied by a native decision
+            key = f["name"] + "_" + f["unique_key"]
+            assert teng.seed_mirror(key) == jeng.seed_mirror(key) is True
+            w1 = jeng.decide_native_single(JReq(**f), now_ms=now)
+            g1 = teng.decide_native_single(RateLimitReq(**f), now_ms=now)
+            assert g1 is not None and _resp_tuple(g1) == _resp_tuple(w1)
+        batch = [dict(f, hits=int(rng.choice([0, 1, 2]))) for f in keys]
+        batch += [dict(keys[int(k)]) for k in rng.choice(40, 4, replace=False)]
+        order = rng.permutation(len(batch))
+        batch = [batch[i] for i in order]
+        want = jeng.get_rate_limits([JReq(**f) for f in batch], now_ms=now + 1)
+        got = teng.get_rate_limits([RateLimitReq(**f) for f in batch], now_ms=now + 1)
+        assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
+    _assert_same_end_state(jeng, teng)
+    assert max(per_fetch) >= 5, per_fetch  # one group: five injects, one fetch

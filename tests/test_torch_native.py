@@ -184,3 +184,100 @@ def test_make_key_directory_raises_when_the_build_fails(monkeypatch, tmp_path):
         Engine(device="cpu", capacity=8)
     monkeypatch.setenv("GUBER_NO_NATIVE", "1")
     assert Engine(device="cpu", capacity=8)._prep_fast is None
+
+
+def _garbage_rows(rows):
+    """A caller's inject array (the engine's page-locked staging on the card)
+    holding stale rows: only the rows the C call writes may be read back."""
+    return np.full((rows, 8), -(1 << 50) + 3, np.int64)
+
+
+@pytest.mark.parametrize("capacity", [512, 24])
+def test_prep_pack_fast_into_caller_array_matches_jax(capacity):
+    """The same window stream with lone-request mirrors, through the JAX
+    binding, the port's binding with its own allocation, and the port's
+    binding writing into one reused caller array (larger than any window,
+    stale rows in it): equal n0, lanes, leftover, packed rows and inject
+    rows, and the caller-array inject is a view of that array's first rows."""
+    width = 32
+    jd = jnative.NativeKeyDirectory(capacity)
+    own, into = tnative.NativeKeyDirectory(capacity), tnative.NativeKeyDirectory(capacity)
+    staging = _garbage_rows(width + 8)
+    rng = np.random.RandomState(41 + capacity)
+    injected = 0
+    for _ in range(40):
+        n = int(rng.choice([1, 8, 31, 32, 40]))
+        fields = _window(rng, 200, n)
+        packed = [np.zeros((9, width), np.int64) for _ in range(3)]
+        want = jnative.prep_pack_fast(jd, [JReq(**f) for f in fields], packed[0], GREG)
+        reqs = [RateLimitReq(**f) for f in fields]
+        got_own = tnative.prep_pack_fast(own, reqs, packed[1], GREG)
+        got_into = tnative.prep_pack_fast(into, reqs, packed[2], GREG, staging)
+        for got in (got_own, got_into):
+            assert got[0] == want[0]
+            for g, w in zip(got[1:], want[1:]):
+                if w is None:
+                    assert g is None
+                else:
+                    np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(packed[1], packed[0])
+        np.testing.assert_array_equal(packed[2], packed[0])
+        assert np.shares_memory(got_into[3], staging) or len(got_into[3]) == 0
+        if len(got_into[3]):
+            assert got_into[3].__array_interface__["data"][0] == staging.ctypes.data
+        injected += len(got_into[3])
+        for f in fields[:4]:  # dirty a few mirrors in all three directories
+            if f["name"] and f["unique_key"]:
+                key = f["name"] + "_" + f["unique_key"]
+                row = _mirror_row(rng, NOW)
+                for d in (jd, own, into):
+                    d.mirror_seed(key, row)
+                args = (key, 1, row[1], row[3], row[0], 0, NOW)
+                assert own.decide_one(*args) == into.decide_one(*args) == jd.decide_one(*args)
+    assert injected > 0
+
+
+@pytest.mark.parametrize("capacity,n_keys", [(512, 300), (40, 120)])
+def test_lookup_inject_into_caller_array_matches_jax(capacity, n_keys):
+    """lookup_inject on one seeded stream with dirty mirrors: the port
+    writing into one reused caller array gives the slots, fresh flags and
+    inject rows of its own allocation and of the JAX binding."""
+    jd = jnative.NativeKeyDirectory(capacity)
+    own, into = tnative.NativeKeyDirectory(capacity), tnative.NativeKeyDirectory(capacity)
+    staging = _garbage_rows(31)
+    rng = np.random.RandomState(capacity + n_keys)
+    now, injected = NOW, 0
+    for _ in range(40):
+        now += int(rng.choice([0, 5, 700]))
+        keys = [_key(k) for k in _zipf(rng, n_keys, rng.randint(1, 31))]
+        want = jd.lookup_inject(keys)
+        got_into = into.lookup_inject(keys, staging)
+        _assert_lookup_equal(own.lookup_inject(keys), want)
+        _assert_lookup_equal(got_into, want)
+        if len(got_into[2]):
+            assert got_into[2].__array_interface__["data"][0] == staging.ctypes.data
+        injected += len(got_into[2])
+        for k in rng.choice(keys, min(4, len(keys)), replace=False):
+            row = _mirror_row(rng, now)
+            for d in (jd, own, into):
+                d.mirror_seed(k, row)
+            args = (k, 1, row[1], row[3], row[0], 0, now + 1)
+            assert own.decide_one(*args) == into.decide_one(*args) == jd.decide_one(*args)
+    assert injected > 0
+
+
+@pytest.mark.parametrize("bad,match", [
+    (np.zeros((8, 8), np.int32), r"got int32\(8, 8\)"),
+    (np.zeros((8, 7), np.int64), r"got int64\(8, 7\)"),
+    (np.zeros((2, 8), np.int64), r">= 3, 8\], got int64\(2, 8\)"),
+    (np.zeros((8, 16), np.int64)[:, ::2], r"got int64\(8, 8\)"),
+    (np.zeros(64, np.int64), r"got int64\(64,\)"),
+])
+def test_caller_inject_array_is_checked(bad, match):
+    """A caller's inject array the C call could overrun or misread is
+    refused before the call: wrong dtype, row width, too few rows for the
+    keys, a strided view, one dimension."""
+    d = tnative.NativeKeyDirectory(16)
+    with pytest.raises(ValueError, match=match):
+        d.lookup_inject(["a", "b", "c"], bad)
+    assert len(d) == 0  # nothing was looked up
