@@ -9,11 +9,19 @@ Run from the root of the repository. Phases, each fatal on failure:
    source, all compilers started together: the CUDA kernels from csrc/
    with nvcc and the key directory native/keydir.cpp with g++; each
    source's build time is printed;
-2. hold the decide kernel to its plain PyTorch version on the card, on a
-   10,000,001-row table populated from --seed: the wide, compact and lean
-   formats at W in {64, 1024, 8192} and the scan at K in {2, 32}, W = 64.
-   Responses and whole tables must be bit-equal; each shape is timed
-   against its plain version and its memory bound;
+2. hold the decide kernels to their plain PyTorch version on the card, on
+   a 10,000,001-row table populated from --seed: the one-window kernel in
+   the wide, compact and lean formats at W in {64, 1024, 8192}, the scan
+   kernel at K in {2, 32}, W = 64, and on a herd group (32 windows, one live
+   lane each, one row). Responses and whole tables must be bit-equal; each
+   shape is timed against its plain version and its bound. Then the sweep,
+   run once: the one-window kernel in blocks of 64 and 128 at each W, and
+   the scan spread over 1, 2, 4 and 8 blocks at K = 32 (each variant held
+   bit-equal first; the library keeps the winners as constants); then the
+   edge lanes, bit-equal: clamped, wrapping and overflowing lanes, the lean
+   sign bit, lanes past the table beside the lane that writes row C-1 (one
+   window of 8192 lanes and scan groups, every format), herds on rows
+   with a negative duration, and scans run in chunks or window by window;
 3. the main path: Engine(device="cuda", capacity=10_000_001) on the native
    directory after warmup() takes --windows client batches of 8192
    requests over 1,000,000 Zipf(1.1) keys through the one-pass fast
@@ -23,11 +31,16 @@ Run from the root of the repository. Phases, each fatal on failure:
    lookups inject the dirty mirrors (the inject kernel, in its pinned form:
    the key directory writes the rows into the engine's page-locked
    staging). Engine(device="cpu") takes the same sequence; responses, lone
-   responses, tables and EngineStats counters must be equal, and every
-   inject and gather launch must have gone through the pinned entry point.
+   responses, tables and EngineStats counters must be equal, every inject
+   and gather launch must have gone through the pinned entry point, and
+   every engine dispatch must have made exactly one decide launch.
    Prints decisions/s, the stage split, seed_mirror's time per call and
-   the host time per Engine._apply_inject_rows that had rows; then the
-   host-stage split of seed_mirror over 10,000 calls;
+   the host time per Engine._apply_inject_rows that had rows; the host-stage
+   split of seed_mirror over 10,000 calls; and the decide launches by
+   format, form, width and K, with the live lanes per window and the
+   longest per-row chain of each scan group. The first 16 scan groups of
+   each format are captured (staging and the rows they touch) and replayed
+   on a fresh table, kernel against plain version, bit-equal, then timed;
 3b. the same engines on the python directory (GUBER_NO_NATIVE=1), 20
    windows, no lone requests;
 4. the GLOBAL sync: the ring kernel against its plain version at
@@ -57,8 +70,9 @@ with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
 3b, 4 and the bench_rows loop) and read just after; every kernel must have
-launched, inject and gather on phase 3, both through their pinned entry
-points only. The last two lines are the
+launched (each decide form and format on phases 3, 3b and 4 together),
+inject and gather on phase 3, both through their pinned entry points
+only. The last two lines are the
 {"kernels": [...]} record and the contract line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -108,13 +122,14 @@ RESP_BYTES = {"wide": 32, "compact": 16, "lean": 16}
 REPLACES = {"decide_wide": "gubernator_tpu/ops/decide.py:464",
             "decide_compact": "gubernator_tpu/ops/decide.py:536",
             "decide_lean": "gubernator_tpu/ops/decide.py:844",
+            "decide_scan_wide": "gubernator_tpu/ops/decide.py:495",
+            "decide_scan_compact": "gubernator_tpu/ops/decide.py:575",
+            "decide_scan_lean": "gubernator_tpu/ops/decide.py:872",
             "ring_all_reduce": "gubernator_tpu/ops/ring.py:39",
             "inject_rows": "gubernator_tpu/models/engine.py:74",
             "gather_rows": "gubernator_tpu/models/engine.py:86",
             "row_bump": "scripts/bench_pallas_rows.py:36"}
-SOURCES = {"decide_wide": "gubernator_tpu_torch/csrc/decide.cu",
-           "decide_compact": "gubernator_tpu_torch/csrc/decide.cu",
-           "decide_lean": "gubernator_tpu_torch/csrc/decide.cu",
+SOURCES = {**{name: "gubernator_tpu_torch/csrc/decide.cu" for name in dk.launch_counts},
            "ring_all_reduce": "gubernator_tpu_torch/csrc/ring.cu",
            "inject_rows": "gubernator_tpu_torch/csrc/rows.cu",
            "gather_rows": "gubernator_tpu_torch/csrc/rows.cu",
@@ -290,43 +305,76 @@ def staged(fmt, wide, capacity, device):
     return torch.from_numpy(ln[0]).to(device), torch.from_numpy(ln[1]).to(device)
 
 
+def decide_times(run_k, run_p, iters=64):
+    """A decide kernel's numbers on one stimulus set: device ms per launch
+    (torch.profiler, null where it gives none), ms per wrapper call (CUDA
+    events, back to back) and the plain version's ms per call."""
+    call_ms = event_ms(run_k, iters)
+    return dict(ms=profiled_ms(run_k, 32, "decide_kernel"), call_ms=call_ms,
+                plain_ms=event_ms(run_p, 8))
+
+
+def decide_bound(fmt, wide, rows):
+    """The decide bound of one staging (wide i64[.., 9, W] on the host) that
+    touches `rows` distinct rows: each row read and written once, the
+    staging read and the responses written once; the lattice's operations
+    for each live lane."""
+    lanes = wide[..., 0, :].size
+    live = int((wide[..., 0, :] >= 0).sum())
+    n_bytes = rows * 128 + lanes * (STAGE_BYTES[fmt] + RESP_BYTES[fmt]) + (
+        dk.LEAN_MAX_CFG * 32 if fmt == "lean" else 0)
+    b_ms, b_by = bound_ms(n_bytes, live * DECIDE_OPS_PER_LANE)
+    return dict(live_lanes=live, rows=rows, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by)
+
+
+def touched_rows(wide, C):
+    """Distinct table rows a staging touches (slots past the table read C-1)."""
+    s = wide[..., 0, :]
+    return int(np.unique(np.minimum(s[s >= 0], C - 1)).size)
+
+
+def herd(rng, table, fmt, k=32, width=64):
+    """A hot-key herd as the engine's scan tail sends it: k windows of
+    `width` lanes, one live lane each at a random position, all on one row
+    with the same request."""
+    one = stimulus(rng, table, width, fmt, live=1.0 / width)
+    col = one[:, one[0] >= 0][:, 0]
+    wide = np.zeros((k, 9, width), np.int64)
+    wide[:, 0, :] = -1
+    for w in range(k):
+        wide[w, :, rng.integers(width)] = col
+    wide[1:, 8, :] = 0  # only the first visit may find the slot fresh
+    return wide
+
+
 def phase_decide(seed, dev, results):
-    log("== phase 2: decide kernel vs its plain version, "
+    log("== phase 2: decide kernels vs their plain version, "
         f"table {CAPACITY} rows ({CAPACITY * 64 / 1e6:.0f} MB)")
     rng = np.random.default_rng(seed)
     kern = populate_table(CAPACITY, seed, dev)
     plain = kern.clone()
-    shapes = [(fmt, w, 0) for fmt in FORMATS for w in (64, 1024, WINDOW)]
-    shapes += [(fmt, 64, k) for fmt in FORMATS for k in (2, 32)]
+    shapes = [(fmt, w, 0, "windows") for fmt in FORMATS for w in (64, 1024, WINDOW)]
+    shapes += [(fmt, 64, k, "windows") for fmt in FORMATS for k in (2, 32)]
+    shapes += [(fmt, 64, 32, "herd") for fmt in FORMATS]
     errs = {}
-    for fmt, width, k in shapes:
+
+    def make(fmt, width, k, kind):
+        if kind == "herd":
+            return herd(rng, kern, fmt)
+        if k:
+            pool = rng.choice(CAPACITY, 256, replace=False)  # windows overlap
+            return np.stack([stimulus(rng, kern, width, fmt, slots=pool) for _ in range(k)])
+        return stimulus(rng, kern, width, fmt)
+
+    for fmt, width, k, kind in shapes:
         f = FORMATS[fmt]
         scan = k > 0
-        if scan:
-            pool = rng.choice(CAPACITY, 256, replace=False)  # windows overlap
-            wide = np.stack([stimulus(rng, kern, width, fmt, slots=pool) for _ in range(k)])
-        else:
-            wide = stimulus(rng, kern, width, fmt)
+        wide = make(fmt, width, k, kind)
         packed, cfg = staged(fmt, wide, CAPACITY, dev)
-        out_k = dk.decide_cuda(f, kern, packed, cfg, NOW, scan)
-        out_p = dk.decide_plain(f, plain, packed, cfg, NOW, scan)
-        torch.cuda.synchronize()
-        name = dk._FORMAT_NAMES[f]
-        err = max(max_abs_err(out_k, out_p), max_abs_err(kern, plain))
-        errs[name] = max(errs.get(name, 0), err)
-        check(torch.equal(out_k, out_p), f"{fmt} W={width} K={k}: responses differ")
-        check(torch.equal(kern, plain), f"{fmt} W={width} K={k}: tables differ")
+        hold(f, kern, plain, packed, cfg, scan, f"{fmt} W={width} K={k} {kind}", errs)
 
         # timing: 16 distinct stimuli, cycled, so rows come cold from HBM
-        stims = []
-        for _ in range(16):
-            if scan:
-                pool = rng.choice(CAPACITY, 256, replace=False)
-                w_ = np.stack([stimulus(rng, kern, width, fmt, slots=pool) for _ in range(k)])
-            else:
-                w_ = stimulus(rng, kern, width, fmt)
-            stims.append(staged(fmt, w_, CAPACITY, dev))
-        live = int((wide[..., 0, :] >= 0).sum())
+        stims = [staged(fmt, make(fmt, width, k, kind), CAPACITY, dev) for _ in range(16)]
 
         def run_k(i):
             pk, cf = stims[i % 16]
@@ -336,33 +384,61 @@ def phase_decide(seed, dev, results):
             pk, cf = stims[i % 16]
             dk.decide_plain(f, plain, pk, cf, NOW, scan)
 
-        call_ms = event_ms(run_k, 64)
-        ms = profiled_ms(run_k, 32, "decide_kernel")
-        plain_ms = event_ms(run_p, 8)
+        t = decide_times(run_k, run_p)
         plain.copy_(kern)  # the timing runs mutated the two tables differently
-        lanes = width * max(k, 1)
-        n_bytes = live * 128 + lanes * (STAGE_BYTES[fmt] + RESP_BYTES[fmt]) + (
-            dk.LEAN_MAX_CFG * 32 if fmt == "lean" else 0)
-        b_ms, b_by = bound_ms(n_bytes, live * DECIDE_OPS_PER_LANE)
-        rec = dict(kernel=name, fmt=fmt, width=width, scan_k=k, live_lanes=live,
-                   ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, bytes=n_bytes)
+        rec = dict(kernel=dk._COUNT_NAMES[f, scan], fmt=fmt, width=width, scan_k=k, kind=kind,
+                   **decide_bound(fmt, wide, touched_rows(wide, CAPACITY)), **t)
         results["decide_shapes"].append(rec)
-        tlog(f"  {fmt:7s} W={width:5d} K={k:2d}: bit-equal; kernel {fms(ms)} ms on the "
-             f"device, {call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms; "
-             f"bound {b_ms:.6f} ms ({b_by})")
-    edge_cases(kern, plain, dev, errs)
+        tlog(f"  {fmt:7s} W={width:5d} K={k:2d} {kind:7s}: bit-equal; kernel {fms(t['ms'])} ms "
+             f"on the device, {t['call_ms']:.4f} ms per wrapper call; plain "
+             f"{t['plain_ms']:.4f} ms; bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    results["decide_sweep"] = sweep(rng, kern, plain, dev, errs)
+    edge_cases(kern, plain, dev, errs)  # last: its rows leave the compact range
     del kern, plain
     torch.cuda.empty_cache()
     return errs
+
+
+def hold(f, kern, plain, packed, cfg, scan, what, errs):
+    """One decide through the kernel and the plain version: bit-equal
+    responses and tables, or the run fails."""
+    out_k = dk.decide_cuda(f, kern, packed, cfg, NOW, scan)
+    out_p = dk.decide_plain(f, plain, packed, cfg, NOW, scan)
+    torch.cuda.synchronize()
+    name = dk._COUNT_NAMES[f, scan]
+    errs[name] = max(errs.get(name, 0), max_abs_err(out_k, out_p), max_abs_err(kern, plain))
+    check(torch.equal(out_k, out_p), f"{what}: responses differ")
+    check(torch.equal(kern, plain), f"{what}: tables differ")
+
+
+def last_row_window(rng, kern, fmt, width, writer=True):
+    """A window whose lane 5 writes row C-1 (a live token bucket) and whose
+    lanes past the table (slots C, C + 1, C + 7, in other blocks of the
+    window kernel) read it; the other lanes random. The readers must see
+    row C-1 as it stood before the window."""
+    C = kern.shape[0]
+    wide = stimulus(rng, kern, width, fmt)
+    wide[0, wide[0] == C - 1] = -1
+    req = [1, 10, 60_000, 0, 0, 0, 0, 0]  # hits, limit, duration, algo, ...
+    edge = [(width - 1, C), (width // 2 + 3, C + 1), (100 % width, C + 7)]
+    for lane, s in [(5, C - 1)] * writer + edge:
+        wide[0, lane] = s
+        wide[1:, lane] = req
+    return wide
 
 
 def edge_cases(kern, plain, dev, errs):
     """The lanes tests/test_torch_decide.py holds the plain version to on the
     CPU, now kernel against plain on the card: a slot past the table (the
     gather clamps, the store drops), int64 wraparound, negative durations,
-    a sticky status past i32, algorithm 7, padding between live lanes; and
-    a lean window of 128 configs, whose ids set the lane word's sign bit."""
+    a sticky status past i32, algorithm 7, padding between live lanes; a
+    lean window of 128 configs, whose ids set the lane word's sign bit; and
+    lanes past the table beside the lane that writes row C-1, in one window
+    of 8192 lanes and in scan groups (K = 4, W = 64; one window without
+    the writer), wide, compact and lean; a wide scan group of token and
+    leaky herds on live rows with a negative duration; and scans the engine
+    never sends: lean K = 40 and compact K = 32 at W = 256 (chunks of whole
+    windows), wide K = 3 at W = 8192 (a window a launch)."""
     C = kern.shape[0]
     big = np.iinfo(np.int64).max
     for r, v in {0: [0, 10, 4, 5, big - 3, NOW + 1000, 0, 0],
@@ -385,16 +461,100 @@ def edge_cases(kern, plain, dev, errs):
         packed, cfg = staged(fmt, p, C, dev)
         if fmt == "lean":
             check(bool((packed < 0).any()), "lean edge window sets no sign bit")
-        f = FORMATS[fmt]
-        out_k = dk.decide_cuda(f, kern, packed, cfg, NOW)
-        out_p = dk.decide_plain(f, plain, packed, cfg, NOW)
-        torch.cuda.synchronize()
-        name = dk._FORMAT_NAMES[f]
-        errs[name] = max(errs[name], max_abs_err(out_k, out_p), max_abs_err(kern, plain))
-        check(torch.equal(out_k, out_p), f"{fmt} edge lanes: responses differ")
-        check(torch.equal(kern, plain), f"{fmt} edge lanes: tables differ")
+        hold(FORMATS[fmt], kern, plain, packed, cfg, False, f"{fmt} edge lanes", errs)
+    rng = np.random.default_rng(99)
+    row = torch.tensor([0, 10, 4, 60_000, NOW - 5, NOW + 60_000, 0, 3], device=dev)
+    for fmt in FORMATS:
+        kern[C - 1] = plain[C - 1] = row
+        wide = last_row_window(rng, kern, fmt, WINDOW)
+        packed, cfg = staged(fmt, wide, C, dev)
+        hold(FORMATS[fmt], kern, plain, packed, cfg, False,
+             f"{fmt} row C-1 written beside lanes past the table", errs)
+        kern[C - 1] = plain[C - 1] = row
+        pool = rng.choice(C - 1, 256, replace=False)
+        group = np.stack([last_row_window(rng, kern, fmt, 64, writer=w != 2)
+                          for w in range(4)])
+        for w in range(4):  # the random lanes of the group overlap
+            live = (group[w, 0] >= 0) & (group[w, 0] < C - 1)
+            group[w, 0, live] = rng.choice(pool, int(live.sum()), replace=False)
+        packed, cfg = staged(fmt, group, C, dev)
+        hold(FORMATS[fmt], kern, plain, packed, cfg, True,
+             f"{fmt} scan, row C-1 written beside lanes past the table", errs)
+    # a herd on live rows whose duration is negative: the first deduct leaves
+    # each row expired, so the scan's run of plain requests must stop there
+    rows = rng.choice(C - 1, 2, replace=False)
+    group = np.zeros((6, 9, 64), np.int64)
+    group[:, 0, :] = -1
+    for i, (r, algo) in enumerate(zip(rows.tolist(), (0, 1))):
+        kern[r] = plain[r] = torch.tensor([algo, 5, 4, -7_001, NOW - 5, NOW + 60_000, 0, 3],
+                                          device=dev)
+        group[:, :, 10 + i] = [r, 1, 5, -7_001, algo, 0, 0, 0, 0]
+    packed, cfg = staged("wide", group, C, dev)
+    hold(dk.WIDE, kern, plain, packed, cfg, True, "wide scan, herds with a negative duration", errs)
+    # scans the engine never sends, which the kernel runs in chunks of whole
+    # windows (more than 32 windows; a staging past shared memory) or as one
+    # window launch a window (a window past shared memory); windows share rows
+    for fmt, k, width in (("lean", 40, 64), ("compact", 32, 256), ("wide", 3, WINDOW)):
+        pool = rng.choice(C - 1, 2 * width, replace=False)
+        group = np.stack([stimulus(rng, kern, width, fmt, slots=pool) for _ in range(k)])
+        packed, cfg = staged(fmt, group, C, dev)
+        hold(FORMATS[fmt], kern, plain, packed, cfg, True, f"{fmt} scan K={k} W={width}", errs)
     log("  edge lanes (clamp, wraparound, negative durations, i32 status, "
-        "algorithm 7, lean sign bit): bit-equal")
+        "algorithm 7, lean sign bit; row C-1 written beside lanes past the table, "
+        "one window and scan; herds on a negative duration; scans in chunks and "
+        "window by window): bit-equal")
+
+
+SWEEP_THREADS = (64, 128)  # the one-window kernel's block sizes
+SWEEP_SPREAD = (1, 2, 4, 8)  # blocks a scan group's rows are spread over
+
+
+def sweep(rng, kern, plain, dev, errs):
+    """The block-size sweep of the one-window kernel (blocks of 64 and 128
+    at W = 64, 1024 and 8192) and the scan's spread (1, 2 and 4 blocks at
+    K = 32, W = 64), every format: device ms per launch, each variant first
+    held bit-equal to the plain version. The library's constants are what
+    the sweep chose; it is restored after."""
+    lib = dk._load()
+    recs = []
+    cases = [("window", t, w) for t in SWEEP_THREADS for w in (64, 1024, WINDOW)]
+    cases += [("scan", n, 64) for n in SWEEP_SPREAD]
+    try:
+        for what, v, width in cases:
+            check(lib.decide_tune(v if what == "window" else 0,
+                                  v if what == "scan" else 0) == 0, "decide_tune refused")
+            for fmt in FORMATS:
+                f = FORMATS[fmt]
+                scan = what == "scan"
+
+                def make():
+                    if not scan:
+                        return stimulus(rng, kern, width, fmt)
+                    pool = rng.choice(CAPACITY, 256, replace=False)
+                    return np.stack([stimulus(rng, kern, width, fmt, slots=pool)
+                                     for _ in range(32)])
+
+                packed, cfg = staged(fmt, make(), CAPACITY, dev)
+                hold(f, kern, plain, packed, cfg, scan, f"sweep {what} {v} {fmt}", errs)
+                stims = [staged(fmt, make(), CAPACITY, dev) for _ in range(16)]
+                ms = profiled_ms(lambda i: dk.decide_cuda(f, kern, *stims[i % 16], NOW, scan),
+                                 32, "decide_kernel")
+                plain.copy_(kern)
+                recs.append(dict(form=what, value=v, width=width, fmt=fmt, ms=ms))
+                tlog(f"  sweep: {what} kernel, {'threads' if what == 'window' else 'blocks'} "
+                     f"{v:3d}, {fmt:7s} W={width:5d}{' K=32' if scan else ''}: "
+                     f"{fms(ms)} ms on the device")
+    finally:
+        lib.decide_tune(0, 0)
+    for what, unit in (("window", "threads"), ("scan", "blocks")):
+        best = {}
+        for r in recs:
+            if r["form"] == what and r["ms"] is not None:
+                key = f"{r['fmt']} W={r['width']}"
+                best[key] = min(best.get(key, (float("inf"), 0)), (r["ms"], r["value"]))
+        tlog(f"  sweep: fastest {what} kernel {unit} by shape: "
+             + ", ".join(f"{k} {v[1]}" for k, v in best.items()))
+    return recs
 
 
 # ----------------------------------------------------------------- phase 3
@@ -531,6 +691,132 @@ def timed_hooks(gpu):
     return spent
 
 
+CAPTURE_GROUPS = 16  # scan groups of phase 3 kept for the replay, per format
+
+
+def record_launches(gpu):
+    """Wrap the card engine's two dispatches (around them, not on the
+    wrapper's path): each launch's launch_counts key, width and K, and for
+    a scan the live lanes of each real window and the longest per-row
+    chain (the most windows that touch one row). Each dispatch must have
+    made exactly one decide launch. The first CAPTURE_GROUPS scan groups of
+    each format are kept: the wide staging, the rows it touches as they
+    stood before the launch, now and the format."""
+    mix = {"launches": [], "captured": []}
+    C = gpu.capacity
+
+    def launched(before):
+        keys = [k for k, v in dk.launch_counts.items() if v != before[k]]
+        check(len(keys) == 1 and dk.launch_counts[keys[0]] == before[keys[0]] + 1,
+              f"an engine dispatch made decide launches {keys}, not one")
+        return keys[0]
+
+    def one(packed, now_ms, _fn=gpu._dispatch_staged):
+        before = dict(dk.launch_counts)
+        out = _fn(packed, now_ms)
+        mix["launches"].append(dict(key=launched(before), width=packed.shape[-1], k=0))
+        return out
+
+    def scan(stacked, now_ms, _fn=gpu._dispatch_scan_staged):
+        s = stacked[:, 0, :]
+        live = (s >= 0).sum(1)
+        _, per_row = np.unique(np.minimum(s[s >= 0], C - 1), return_counts=True)
+        kept = [g["fmt"] for g in mix["captured"]]
+        want = any(kept.count(f) < CAPTURE_GROUPS for f in FORMATS)
+        if want:  # the rows as they stand before the launch
+            slots = np.unique(np.minimum(s[s >= 0], C - 1))
+            rows = gpu.state[torch.from_numpy(slots).to(gpu.state.device)].cpu()
+        before = dict(dk.launch_counts)
+        out = _fn(stacked, now_ms)
+        key = launched(before)
+        fmt = key.rsplit("_", 1)[1]
+        mix["launches"].append(dict(key=key, width=s.shape[-1], k=s.shape[0],
+                                    live=live[live > 0].tolist(),
+                                    chain=int(per_row.max()) if per_row.size else 0))
+        if want and kept.count(fmt) < CAPTURE_GROUPS:
+            mix["captured"].append(dict(stacked=stacked.copy(), slots=slots, rows=rows,
+                                        now=now_ms, fmt=fmt))
+        return out
+
+    gpu._dispatch_staged = one
+    gpu._dispatch_scan_staged = scan
+    return mix
+
+
+def launch_histogram(launches):
+    """The decide launches by format, scan or not, width and K; for the
+    scans the live lanes per window and the longest per-row chain."""
+    by_shape = {}
+    for r in launches:
+        k = f"{r['key']} W={r['width']}" + (f" K={r['k']}" if r["k"] else "")
+        by_shape[k] = by_shape.get(k, 0) + 1
+    scans = [r for r in launches if r["k"]]
+    live = np.array([n for r in scans for n in r["live"]], np.int64)
+    chain = np.array([r["chain"] for r in scans], np.int64)
+    windows = np.array([len(r["live"]) for r in scans], np.int64)
+
+    def dist(a, edges):
+        return {f"{lo}-{hi}": int(((a >= lo) & (a <= hi)).sum()) for lo, hi in edges}
+
+    hist = dict(launches=len(launches), by_shape=dict(sorted(by_shape.items())),
+                scan_launches=len(scans),
+                scan_real_windows=dist(windows, [(1, 2), (3, 4), (5, 8), (9, 16), (17, 32)]),
+                scan_live_per_window=dist(live, [(1, 1), (2, 4), (5, 16), (17, 64)]),
+                scan_live_mean=float(live.mean()) if live.size else None,
+                scan_longest_chain=dist(chain, [(1, 1), (2, 4), (5, 8), (9, 16), (17, 32)]),
+                scan_chain_mean=float(chain.mean()) if chain.size else None)
+    tlog(f"  decide launches by shape: {json.dumps(hist['by_shape'])}")
+    tlog(f"  scan launches {len(scans)}: real windows per group {hist['scan_real_windows']}; "
+         f"live lanes per window {hist['scan_live_per_window']} (mean "
+         f"{hist['scan_live_mean']}); longest per-row chain {hist['scan_longest_chain']} "
+         f"(mean {hist['scan_chain_mean']})")
+    return hist
+
+
+def replay_groups(groups, dev, results, errs):
+    """The captured scan groups against a fresh 10,000,001-row table: each
+    group's rows written as they stood, then kernel against plain version,
+    bit-equal; then each format's groups timed, cycled."""
+    kern = dk.make_table(CAPACITY, dev)
+    plain = kern.clone()
+    runs = {fmt: [] for fmt in FORMATS}
+    for i, g in enumerate(groups):
+        slots = torch.from_numpy(g["slots"]).to(dev)
+        kern[slots] = plain[slots] = g["rows"].to(dev)
+        packed, cfg = staged(g["fmt"], g["stacked"], CAPACITY, dev)
+        hold(FORMATS[g["fmt"]], kern, plain, packed, cfg, True, f"captured scan group {i}", errs)
+        runs[g["fmt"]].append((packed, cfg, g["now"], g))
+    recs = []
+    for fmt, sel in runs.items():
+        if not sel:
+            continue
+        f, n = FORMATS[fmt], len(sel)
+
+        def run_k(i):
+            pk, cf, now, _ = sel[i % n]
+            dk.decide_cuda(f, kern, pk, cf, now, True)
+
+        def run_p(i):
+            pk, cf, now, _ = sel[i % n]
+            dk.decide_plain(f, plain, pk, cf, now, True)
+
+        t = decide_times(run_k, run_p)
+        bounds = [decide_bound(fmt, g["stacked"], len(g["slots"])) for *_, g in sel]
+        rec = dict(kernel=dk._COUNT_NAMES[f, True], fmt=fmt, groups=n,
+                   k=sorted({g["stacked"].shape[0] for *_, g in sel}),
+                   live_lanes=float(np.mean([b["live_lanes"] for b in bounds])),
+                   bound_ms=float(np.mean([b["bound_ms"] for b in bounds])),
+                   bound_by=bounds[0]["bound_by"], **t)
+        recs.append(rec)
+        tlog(f"  captured {fmt:7s} scan groups ({n}, K in {rec['k']}, {rec['live_lanes']:.1f} "
+             f"live lanes a group): bit-equal; kernel {fms(t['ms'])} ms on the device, "
+             f"{t['call_ms']:.4f} ms per wrapper call; plain {t['plain_ms']:.4f} ms; mean bound "
+             f"{rec['bound_ms']:.6f} ms")
+    results["decide_captured"] = recs
+    del kern, plain
+    torch.cuda.empty_cache()
+
+
 def phase_engine(seed, n_windows, dev, results):
     log(f"== phase 3: main path, Engine(capacity={CAPACITY}) on the native directory, "
         f"{dev} vs cpu, {n_windows} windows of {WINDOW} requests, then the "
@@ -582,10 +868,14 @@ def phase_engine(seed, n_windows, dev, results):
     gpu._slow_window = tail
     gpu._apply_inject_rows = timed_inject
     spent = timed_hooks(gpu)
+    mix = record_launches(gpu)
     dk.reset_launch_counts()
     rowk.reset_launch_counts()
     m = drive_engines(gpu, cpu, batches, key_cfg, True, spent)
     launches = {**dk.launch_counts, **rowk.launch_counts}
+    check(len(mix["launches"]) == sum(dk.launch_counts.values()),
+          f"{sum(dk.launch_counts.values())} decide launches, {len(mix['launches'])} "
+          "engine dispatches")
     pinned = dict(rowk.pinned_counts)
     check(fast["taken"] > 0, "no window took the fast path")
     check(launches["inject_rows"] > 0 and launches["gather_rows"] > 0,
@@ -637,9 +927,10 @@ def phase_engine(seed, n_windows, dev, results):
     hot = [r.hash_key() for r in lone_requests(batches[-1][0], key_cfg)]
     results["host_split_seed_mirror"] = split_seed_mirror(
         gpu, [k for k in hot if gpu.directory.peek_slot(k) >= 0])
+    results["decide_launch_mix"] = launch_histogram(mix["launches"])
     del gpu, cpu
     torch.cuda.empty_cache()
-    return launches
+    return launches, mix["captured"]
 
 
 def phase_engine_python(seed, n_windows, dev, results):
@@ -1223,15 +1514,20 @@ def main(argv=None) -> int:
                "build_each_s": {k: v[1] for k, v in build_logs.items()},
                "decide_shapes": []}
     decide_errs = phase_decide(args.seed, dev, results)
-    eng_launches = phase_engine(args.seed, args.windows, dev, results)
+    eng_launches, captured = phase_engine(args.seed, args.windows, dev, results)
+    check(len(captured) > 0, "phase 3 made no scan launch to capture")
+    replay_groups(captured, dev, results, decide_errs)
     py_launches = phase_engine_python(args.seed, PYTHON_DIR_WINDOWS, dev, results)
     glob_launches, ring_main = phase_global(args.seed, dev, results)
     row_errs, row_recs, bump_launches = phase_rows(args.seed, dev, results)
 
     kernels = []
-    for name in ("decide_wide", "decide_compact", "decide_lean"):
+    for name in dk.launch_counts:
+        scan = "_scan_" in name
         main_shape = next(r for r in results["decide_shapes"]
-                          if r["kernel"] == name and r["width"] == WINDOW)
+                          if r["kernel"] == name and r["kind"] == "windows"
+                          and r["width"] == (64 if scan else WINDOW)
+                          and r["scan_k"] == (32 if scan else 0))
         n = eng_launches[name] + py_launches[name] + glob_launches[name]
         check(n > 0, f"{name} was never launched on the main path")
         kernels.append(dict(
@@ -1239,7 +1535,7 @@ def main(argv=None) -> int:
             launches=n, max_abs_err=decide_errs[name], ms=main_shape["ms"],
             plain_ms=main_shape["plain_ms"], bound_ms=main_shape["bound_ms"],
             bound_by=main_shape["bound_by"], library_ms=None, library_device_ms=None,
-            call_ms=main_shape["call_ms"], shape=f"W={WINDOW}"))
+            call_ms=main_shape["call_ms"], shape="K=32, W=64" if scan else f"W={WINDOW}"))
     n = glob_launches["ring_all_reduce"]
     check(n > 0, "ring_all_reduce was never launched on the GLOBAL sync path")
     kernels.append(dict(

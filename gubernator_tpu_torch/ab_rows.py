@@ -1,4 +1,4 @@
-"""A/B of the row wrappers and the main path's inject between checkouts, on one card.
+"""A/B of the decide, row and inject wrappers and the main path between checkouts, on one card.
 
     python3 -m gubernator_tpu_torch.ab_rows TREE [TREE ...] [--windows 100]
 
@@ -16,10 +16,20 @@ file's package, so every tree is read on one yardstick:
   index_copy_), with the stimuli of chip_smoke's phase 5; each tree's
   wrapper is called as its own main path calls it (a caller's `out` where
   row_bump_cuda takes one); then the tree's own bench_rows loop;
+- decide_cuda at chip_smoke's phase-2 shapes (one window of W = 64, 1024
+  and 8192; scans of K = 2 and 32 windows of 64; the herd group), every
+  format, 16 stimuli cycled on a 10,000,001-row table: device ms per
+  launch (torch.profiler) and ms per wrapper call (CUDA events); then the
+  scan groups that TREE's Engine launches on the first 20 windows of
+  phase 3's stream, captured with the rows they touch and replayed on a
+  fresh table, timed the same way per format; and whether TREE's kernel
+  answers chip_smoke's row C-1 edge window (lanes past the table beside
+  the lane that writes row C-1, 8192 lanes) as its plain version does;
 - chip_smoke's phase-3 stream (--windows client batches and their lone
   requests) through TREE's Engine on the card, without the CPU twin:
   host microseconds per Engine._apply_inject_rows call that had rows,
-  seed_mirror microseconds, decisions per second.
+  seed_mirror microseconds, decisions per second; then chip_smoke's
+  phase 4 (the GLOBAL sync on the ring), for its ms per sync step.
 
 Prints the card's line (nvidia-smi name, power limit), then one JSON line
 per tree. Needs one card.
@@ -98,6 +108,83 @@ def _rows(cs, dev):
     return recs, probe
 
 
+CAPTURE_WINDOWS = 20  # phase-3 windows whose scan groups are replayed
+
+
+def _decide(cs, dev):
+    """The tree's decide_cuda on one yardstick: phase 2's shapes, the
+    captured scan groups and the row C-1 edge window."""
+    from gubernator_tpu_torch.models.engine import Engine
+    from gubernator_tpu_torch.ops import decide as dk
+
+    rng = np.random.default_rng(7)
+    kern = cs.populate_table(cs.CAPACITY, 0, dev)
+    recs = []
+
+    def timed(f, stims, scan):
+        def run(i):
+            pk, cf, now = stims[i % len(stims)]
+            dk.decide_cuda(f, kern, pk, cf, now, scan)
+        return dict(ms=cs.profiled_ms(run, 32, "decide_kernel"), call_ms=cs.event_ms(run, 64))
+
+    shapes = [(fmt, w, 0, "windows") for fmt in cs.FORMATS for w in (64, 1024, cs.WINDOW)]
+    shapes += [(fmt, 64, k, "windows") for fmt in cs.FORMATS for k in (2, 32)]
+    shapes += [(fmt, 64, 32, "herd") for fmt in cs.FORMATS]
+    for fmt, width, k, kind in shapes:
+        def make():
+            if kind == "herd":
+                return cs.herd(rng, kern, fmt)
+            if k:
+                pool = rng.choice(cs.CAPACITY, 256, replace=False)
+                return np.stack([cs.stimulus(rng, kern, width, fmt, slots=pool) for _ in range(k)])
+            return cs.stimulus(rng, kern, width, fmt)
+        stims = [(*cs.staged(fmt, make(), cs.CAPACITY, dev), cs.NOW) for _ in range(16)]
+        recs.append(dict(fmt=fmt, width=width, k=k, kind=kind,
+                         **timed(cs.FORMATS[fmt], stims, k > 0)))
+
+    # the row C-1 edge window, kernel against plain version
+    edge = {}
+    row = torch.tensor([0, 10, 4, 60_000, cs.NOW - 5, cs.NOW + 60_000, 0, 3], device=dev)
+    for fmt in ("wide", "lean"):
+        same = True
+        for _ in range(8):
+            kern[-1] = row
+            pk, cf = cs.staged(fmt, cs.last_row_window(rng, kern, fmt, cs.WINDOW), cs.CAPACITY, dev)
+            plain = kern.clone()
+            out_k = dk.decide_cuda(cs.FORMATS[fmt], kern, pk, cf, cs.NOW)
+            out_p = dk.decide_plain(cs.FORMATS[fmt], plain, pk, cf, cs.NOW)
+            same = same and torch.equal(out_k, out_p) and torch.equal(kern, plain)
+            del plain
+        edge[fmt] = same
+    del kern
+    torch.cuda.empty_cache()
+
+    # the scan groups of the first phase-3 windows, as the tree's Engine sends them
+    batches, _ = cs.request_stream(0, CAPTURE_WINDOWS)
+    os.environ.pop("GUBER_NO_NATIVE", None)
+    gpu = Engine(device=dev, capacity=cs.CAPACITY, min_width=64, max_width=cs.WINDOW)
+    gpu.warmup()
+    mix = cs.record_launches(gpu)
+    for i, (_, batch) in enumerate(batches):
+        gpu.get_rate_limits(batch, now_ms=cs.NOW + i * 50)
+    del gpu
+    torch.cuda.empty_cache()
+    kern = dk.make_table(cs.CAPACITY, dev)
+    captured = []
+    for fmt in cs.FORMATS:
+        sel = [g for g in mix["captured"] if g["fmt"] == fmt]
+        if not sel:
+            continue
+        stims = []
+        for g in sel:
+            kern[torch.from_numpy(g["slots"]).to(dev)] = g["rows"].to(dev)
+            stims.append((*cs.staged(fmt, g["stacked"], cs.CAPACITY, dev), g["now"]))
+        captured.append(dict(fmt=fmt, groups=len(sel), **timed(cs.FORMATS[fmt], stims, True)))
+    del kern
+    torch.cuda.empty_cache()
+    return dict(shapes=recs, captured=captured, edge_c1_equal=edge)
+
+
 def _engine(cs, dev, windows):
     """Phase 3's stream through the tree's Engine on the card."""
     from gubernator_tpu_torch.models.engine import Engine
@@ -155,9 +242,14 @@ def child(tree: str, windows: int) -> int:
                              "--format=csv,noheader"], capture_output=True, text=True,
                             check=True).stdout.strip().splitlines()[0]
     _build.build()
+    decide = _decide(cs, dev)
     recs, probe = _rows(cs, dev)
-    rec = dict(tree=tree, card=cs.SMI, rows=recs, bench_rows=probe,
-               engine=_engine(cs, dev, windows))
+    engine = _engine(cs, dev, windows)
+    glob = {}
+    cs.phase_global(0, dev, glob)
+    engine["global_step_ms"] = glob["global"]["step_ms"]
+    rec = dict(tree=tree, card=cs.SMI, decide=decide, rows=recs, bench_rows=probe,
+               engine=engine)
     print(json.dumps(rec), flush=True)
     return 0
 

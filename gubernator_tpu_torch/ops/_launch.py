@@ -1,4 +1,5 @@
-"""The launch path shared by the CUDA wrappers of ops/ring.py and ops/rows.py.
+"""The launch path shared by the CUDA wrappers of ops/decide.py, ops/ring.py
+and ops/rows.py.
 
 Their kernels run in about 1.3 µs on the card, so a wrapper call is mostly
 host work: checks, the library, an output, the stream, the ctypes call.
@@ -72,15 +73,16 @@ def cuda_index(t: torch.Tensor, what: str) -> int:
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,
           dims: Sequence[Optional[int]], index: int) -> None:
     """Raise ValueError unless `t` is a contiguous `dtype` tensor with one
-    dimension per entry of `dims` (one or two entries: an int the size must
-    equal, or None for any size) on card `index`, or, for index HOST, in
+    dimension per entry of `dims` (one to three entries: an int the size
+    must equal, or None for any size) on card `index`, or, for index HOST, in
     host memory. One expression over t.shape, read once: Tensor.size(i)
     costs about three times as much as a tuple index."""
     shape = t.shape
     if ((not t.is_cuda if index == HOST else t.get_device() == index)
             and t.dtype is dtype and len(shape) == len(dims) and t.is_contiguous()
             and (dims[0] is None or shape[0] == dims[0])
-            and (len(dims) == 1 or dims[1] is None or shape[1] == dims[1])):
+            and (len(dims) < 2 or dims[1] is None or shape[1] == dims[1])
+            and (len(dims) < 3 or dims[2] is None or shape[2] == dims[2])):
         return
     _refuse(t, what, dtype, dims, index)
 

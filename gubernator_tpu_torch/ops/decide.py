@@ -10,8 +10,9 @@ decide_packed_lean and their decide_scan_* forms) takes tensors on either
 device:
 
 - on the CPU it runs the plain PyTorch version, decide() below;
-- on CUDA it launches the hand-written kernel csrc/decide.cu, or raises.
-  It never falls back to the plain version there.
+- on CUDA it launches the hand-written kernels of csrc/decide.cu through
+  the shared launch path (ops/_launch.py), or raises. It never falls back
+  to the plain version there.
 
 Unlike the JAX functions, which return a new table, these update `state` IN
 PLACE and return only the response rows.
@@ -23,13 +24,14 @@ stage a window identically.
 
 from __future__ import annotations
 
-import ctypes
 import os
+from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from gubernator_tpu_torch.ops import _launch
 from gubernator_tpu_torch.types import Algorithm, Behavior, Status
 from gubernator_tpu_torch.utils.platform import resolve_device
 
@@ -53,10 +55,12 @@ ROW_EXPIRE = 5  # unix ms (doubles as token ResetTime)
 ROW_STATUS = 6
 TABLE_ROW_FIELDS = 8
 
-# Launches of the CUDA kernel, by staging format: each wrapper adds one where
-# it launches, and nowhere else. reset_launch_counts() sets them to 0.
-launch_counts: Dict[str, int] = {"decide_wide": 0, "decide_compact": 0,
-                                 "decide_lean": 0}
+# Launches of the CUDA kernels, by staging format, one window and scan:
+# decide_cuda adds one where it launches, and nowhere else.
+# reset_launch_counts() sets them to 0.
+launch_counts: Dict[str, int] = {
+    f"decide_{form}{fmt}": 0 for form in ("", "scan_")
+    for fmt in ("wide", "compact", "lean")}
 
 
 def reset_launch_counts() -> None:
@@ -251,8 +255,10 @@ def decide(state: torch.Tensor, reqs: ReqBatch, now_ms) -> RespBatch:
 # implied, compact response (decide.py:797-883).
 
 WIDE, COMPACT, LEAN = 0, 1, 2
-_FORMAT_NAMES = {WIDE: "decide_wide", COMPACT: "decide_compact",
-                 LEAN: "decide_lean"}
+# launch_counts' key of each (format, scan)
+_COUNT_NAMES = {(f, scan): f"decide_{'scan_' if scan else ''}{name}"
+                for f, name in ((WIDE, "wide"), (COMPACT, "compact"), (LEAN, "lean"))
+                for scan in (False, True)}
 
 COMPACT_ROWS = 5
 _META_BEHAVIOR_SHIFT = 1
@@ -353,82 +359,75 @@ def decide_plain(fmt: int, state: torch.Tensor, packed: torch.Tensor,
 
 # ------------------------------------------------------------- CUDA kernel
 
-_lib_handle: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        from gubernator_tpu_torch.ops import _build
-
-        lib = _build.load("decide")
-        lib.decide_launch.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.decide_launch.restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
-
+_kernels: Optional[SimpleNamespace] = None
+# The published-copy scratch of csrc/decide.cu, one per card, allocated
+# (zeroed) at the first launch there and never written by the host again.
+_scratch: Dict[int, torch.Tensor] = {}
 
 _PACKED_DTYPE = {WIDE: I64, COMPACT: I32, LEAN: I32}
-_PACKED_ROWS = {WIDE: (9,), COMPACT: (COMPACT_ROWS,), LEAN: ()}
+# the staging's dims for _launch.check, one window and a scan (B free)
+_PACKED_DIMS = {(WIDE, False): (9, None), (WIDE, True): (None, 9, None),
+                (COMPACT, False): (COMPACT_ROWS, None),
+                (COMPACT, True): (None, COMPACT_ROWS, None),
+                (LEAN, False): (None,), (LEAN, True): (None, None)}
 
 
-def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, the table on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+def _load() -> SimpleNamespace:
+    global _kernels
+    if _kernels is None:
+        V, I, LL = _launch.VOID_P, _launch.INT, _launch.LONGLONG
+        k = _launch.load("decide", {
+            "decide_launch": (I, I, V, LL, V, V, V, I, I, LL, I, V, V),
+            "decide_tune": (I, I),
+        })
+        k.scratch_words = k.lib.decide_scratch_words()
+        _kernels = k
+    return _kernels
 
 
 def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
-                cfg: Optional[torch.Tensor], now_ms,
-                scan: bool = False) -> torch.Tensor:
+                cfg: Optional[torch.Tensor], now_ms, scan: bool = False,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch csrc/decide.cu on `state`'s card (same contract as
-    decide_plain). Raises on a tensor it does not take or a refused
-    launch."""
-    dev = state.device
-    if dev.type != "cuda":
-        raise ValueError(f"decide_cuda needs CUDA tensors, got {dev}")
-    if state.dim() != 2 or state.shape[1] != TABLE_ROW_FIELDS:
-        raise ValueError(f"table must be i64[C, {TABLE_ROW_FIELDS}], got "
-                         f"{tuple(state.shape)}")
-    _check(state, "table", I64, state.shape, dev)
+    decide_plain), its responses into `out` when given (on that card, of
+    the response's dtype and shape). Raises on a tensor it does not take
+    or a refused launch."""
+    index = _launch.cuda_index(state, "decide_cuda")
+    _launch.check(state, "table", I64, (None, TABLE_ROW_FIELDS), index)
+    C = state.shape[0]
+    if C == 0:
+        raise ValueError("decide on an empty table")
     if state.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
-    lead = packed.shape[:1] if scan else ()
-    B = packed.shape[-1]
-    _check(packed, "staging", _PACKED_DTYPE[fmt],
-           lead + _PACKED_ROWS[fmt] + (B,), dev)
+    _launch.check(packed, "staging", _PACKED_DTYPE[fmt], _PACKED_DIMS[fmt, scan], index)
     if fmt == LEAN:
-        _check(cfg, "config table", I64, (LEAN_MAX_CFG, 4), dev)
-    K = packed.shape[0] if scan else 1
-    out_dtype = I64 if fmt == WIDE else I32
-    out = torch.empty(lead + (4, B), dtype=out_dtype, device=dev)
+        _launch.check(cfg, "config table", I64, (LEAN_MAX_CFG, 4), index)
+    shape = packed.shape
+    B = shape[-1]
+    K = shape[0] if scan else 1
+    dims = (K, 4, B) if scan else (4, B)
+    dtype = I64 if fmt == WIDE else I32
+    if out is None:
+        out = state.new_empty(dims, dtype=dtype)
+    else:
+        _launch.check(out, "out", dtype, dims, index)
     if K == 0 or B == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().decide_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        fmt, state.data_ptr(), state.shape[0], packed.data_ptr(),
-        cfg.data_ptr() if fmt == LEAN else None, out.data_ptr(),
-        K, B, int(now_ms), int(scan), stream)
-    if err != 0:
-        raise RuntimeError(f"decide kernel launch failed: CUDA error {err}")
-    launch_counts[_FORMAT_NAMES[fmt]] += 1
+    k = _kernels or _load()
+    scratch = _scratch.get(index)
+    if scratch is None:
+        scratch = _scratch[index] = state.new_zeros(k.scratch_words)
+    _launch.raise_on(k.decide_launch(
+        index, fmt, state.data_ptr(), C, packed.data_ptr(),
+        cfg.data_ptr() if fmt == LEAN else None, out.data_ptr(), K, B, int(now_ms),
+        int(scan), scratch.data_ptr(), k.stream(index)), "decide")
+    launch_counts[_COUNT_NAMES[fmt, scan]] += 1
     return out
 
 
 def _decide(fmt, state, packed, cfg, now_ms, scan):
     """The CPU takes the plain version; CUDA takes the kernel, or raises."""
-    if state.device.type == "cpu":
+    if state.is_cpu:
         return decide_plain(fmt, state, packed, cfg, now_ms, scan)
     return decide_cuda(fmt, state, packed, cfg, now_ms, scan)
 

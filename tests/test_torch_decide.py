@@ -15,6 +15,7 @@ chip_smoke.py.
 
 import datetime as dt
 import importlib
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -316,3 +317,192 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         td.decide_cuda(td.WIDE, td.make_table(8, device="cpu"),
                        torch.zeros((9, 4), dtype=torch.int64), None, NOW)
+
+
+# ------------------------------------------------ scan groups as the engine sends them
+
+def _scan_group(rng, table, fmt, kind, K, B):
+    """A wide i64[K, 9, B] scan group. 'herd': one row in every window, one
+    live lane each at a random position, the same request (the engine's
+    hot-key herd: d one-item rounds). 'depths': each of a few rows appears
+    in a random subset of the windows, 1 to K deep, beside lanes on rows
+    of their own, so the windows share rows at random depths."""
+    C = table.shape[0]
+    wide = np.zeros((K, 9, B), np.int64)
+    wide[:, 0, :] = -1
+    if kind == "herd":
+        req = rand_wide(rng, table, 1, NOW, greg=fmt == "wide", lean=fmt == "lean")[:, 0]
+        req[8] = 0
+        for k in range(K):
+            wide[k, :, rng.randint(B)] = req
+        return wide
+    shared = rng.choice(C, 6, replace=False)
+    depth = rng.randint(1, K + 1, len(shared))
+    own = iter(rng.permutation(np.setdiff1d(np.arange(C), shared)))
+    for k in range(K):
+        w = rand_wide(rng, table, B, NOW, greg=fmt == "wide", lean=fmt == "lean")
+        n = int((w[0] >= 0).sum())
+        w[0, :n] = [next(own) for _ in range(n)]
+        for s, d in zip(shared, depth):
+            if rng.rand() < d / K:
+                lane = rng.randint(B)
+                w[:, lane] = rand_wide(rng, table, 1, NOW, slots=np.array([s]),
+                                       greg=fmt == "wide", lean=fmt == "lean")[:, 0]
+        wide[k] = w
+    return wide
+
+
+@pytest.mark.parametrize("kind", ["herd", "depths"])
+@pytest.mark.parametrize("fmt", ["wide", "compact", "lean"])
+def test_scan_groups_match_jax(fmt, kind):
+    """The scan groups the hand scan kernel reorders by row: a herd of
+    K = 32 one-lane windows on one row, and windows sharing rows at random
+    depths. The plain version is held to the JAX scan; the kernel is held
+    to the plain version on the card by chip_smoke.py."""
+    rng = np.random.RandomState({"herd": 21, "depths": 22}[kind] + len(fmt))
+    C, K, B = 512, 32 if kind == "herd" else 8, 16
+    table = populated_table(rng, C)
+    j_state, t_state = both_tables(table)
+    wide = _scan_group(rng, table, fmt, kind, K, B)
+    j_state = run_format(fmt, j_state, t_state, wide, NOW, scan=True)
+    assert_same(j_state, t_state)
+
+
+def _last_row_window(rng, table, fmt, B, writer=True):
+    """A window with a lane that writes row C-1 (a live token bucket) and
+    live lanes past the table (C, C + 3), which read row C-1 as it stood
+    before the window; the other lanes random."""
+    C = table.shape[0]
+    w = rand_wide(rng, table, B, NOW, slots=np.arange(C - 1), greg=fmt == "wide",
+                  lean=fmt == "lean")
+    req = [1, 10, 60_000, 0, 0, 0, 0, 0]
+    for lane, s in [(1, C - 1)] * writer + [(B - 1, C), (B - 2, C + 3)]:
+        w[0, lane] = s
+        w[1:, lane] = req
+    return w
+
+
+@pytest.mark.parametrize("scan", [False, True])
+@pytest.mark.parametrize("fmt", ["wide", "lean"])
+def test_last_row_written_beside_lanes_past_the_table(fmt, scan):
+    """XLA reads every lane's row before any lane of the window writes: a
+    lane past the table reads row C-1 as it stood before its window, even
+    where a lane of the same window writes row C-1, and its own store is
+    dropped. One window, and a scan of three windows (the middle one
+    without the writer)."""
+    rng = np.random.RandomState(31 + scan)
+    C, B = 64, 16
+    table = populated_table(rng, C)
+    table[C - 1] = [0, 10, 4, 60_000, NOW - 5, NOW + 60_000, 0, 3]
+    j_state, t_state = both_tables(table)
+    if scan:
+        wide = np.stack([_last_row_window(rng, table, fmt, B, writer=k != 1)
+                         for k in range(3)])
+    else:
+        wide = _last_row_window(rng, table, fmt, B)
+    j_state = run_format(fmt, j_state, t_state, wide, NOW, scan=scan)
+    assert_same(j_state, t_state)
+    # the writer deducted once a window it ran in; the readers saw the row
+    # before their window, so each answered from it
+    assert int(t_state[C - 1, 2]) == 4 - (2 if scan else 1)
+
+
+# --------------------------------------- the CUDA wrapper, with no card and no nvcc
+
+def _fake_cuda(dtype=torch.int64, shape=(64, 8), index=0, contiguous=True):
+    """What _launch.check and decide_cuda read of a tensor on a card."""
+    return SimpleNamespace(is_cuda=True, get_device=lambda: index, device=f"cuda:{index}",
+                           dtype=dtype, shape=shape, is_contiguous=lambda: contiguous,
+                           data_ptr=lambda: 4096)
+
+
+def _library(calls):
+    """A stand-in for the loaded decide library: records each launch's
+    arguments and returns 0 (accepted)."""
+    def launch(*args):
+        calls.append(args)
+        return 0
+    return SimpleNamespace(decide_launch=launch, stream=lambda index: 7, scratch_words=1024)
+
+
+_I32, _I64 = torch.int32, torch.int64
+
+
+@pytest.mark.parametrize("args,match", [
+    ((td.WIDE, _fake_cuda(shape=(64, 7)), _fake_cuda(shape=(9, 16)), None, False),
+     r"table must be \[n, 8\]"),
+    ((td.WIDE, _fake_cuda(shape=(0, 8)), _fake_cuda(shape=(9, 16)), None, False),
+     "empty table"),
+    ((td.WIDE, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(9, 16)), None, False),
+     "staging must be torch.int64"),
+    ((td.WIDE, _fake_cuda(), _fake_cuda(shape=(8, 16)), None, False),
+     r"staging must be \[9, n\]"),
+    ((td.WIDE, _fake_cuda(), _fake_cuda(shape=(9, 16)), None, True),
+     r"staging must be \[n, 9, n\]"),
+    ((td.COMPACT, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(4, 6, 16)), None, True),
+     r"staging must be \[n, 5, n\]"),
+    ((td.COMPACT, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(5, 16), contiguous=False),
+      None, False), "staging must be contiguous"),
+    ((td.LEAN, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(16,), index=1),
+      _fake_cuda(shape=(128, 4)), False), "staging is on cuda:1, expected cuda:0"),
+    ((td.LEAN, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(4, 16)),
+      _fake_cuda(shape=(64, 4)), True), r"config table must be \[128, 4\]"),
+    ((td.LEAN, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(16,)),
+      torch.zeros((128, 4), dtype=_I64), False), "config table is on cpu, expected cuda:0"),
+])
+def test_cuda_decide_wrapper_refuses(monkeypatch, args, match):
+    """decide_cuda refuses, through _launch.check, a table or staging of a
+    wrong dtype, shape, contiguity or card, and a bad lean config table;
+    nothing is launched or counted."""
+    calls = []
+    monkeypatch.setattr(td, "_kernels", _library(calls))
+    td.reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        td.decide_cuda(*args[:4], NOW, args[4])
+    assert calls == [] and all(v == 0 for v in td.launch_counts.values())
+
+
+@pytest.mark.parametrize("out,match", [
+    (torch.zeros((4, 16), dtype=_I32), "out is on cpu, expected cuda:0"),
+    (_fake_cuda(dtype=_I64, shape=(4, 16)), "out must be torch.int32"),
+    (_fake_cuda(dtype=_I32, shape=(4, 15)), r"out must be \[4, 16\]"),
+    (_fake_cuda(dtype=_I32, shape=(2, 4, 16)), r"out must be \[4, 16\]"),
+    (_fake_cuda(dtype=_I32, shape=(4, 16), contiguous=False), "out must be contiguous"),
+])
+def test_cuda_decide_wrapper_refuses_out(monkeypatch, out, match):
+    """A caller's out= is checked like row_bump's: on the table's card, the
+    response's dtype and shape, contiguous."""
+    calls = []
+    monkeypatch.setattr(td, "_kernels", _library(calls))
+    with pytest.raises(ValueError, match=match):
+        td.decide_cuda(td.COMPACT, _fake_cuda(), _fake_cuda(dtype=_I32, shape=(5, 16)), None,
+                       NOW, False, out)
+    assert calls == []
+
+
+@pytest.mark.parametrize("fmt,scan,staging,key", [
+    (td.WIDE, False, (9, 16), "decide_wide"),
+    (td.COMPACT, False, (5, 16), "decide_compact"),
+    (td.LEAN, False, (16,), "decide_lean"),
+    (td.WIDE, True, (4, 9, 16), "decide_scan_wide"),
+    (td.COMPACT, True, (4, 5, 16), "decide_scan_compact"),
+    (td.LEAN, True, (4, 16), "decide_scan_lean"),
+])
+def test_cuda_decide_wrapper_counts_its_launch(monkeypatch, fmt, scan, staging, key):
+    """One launch, one count, under the key of its format and form; the
+    entry point gets K, B, the scan flag, the card's scratch and the raw
+    stream, and the caller's out comes back."""
+    calls = []
+    monkeypatch.setattr(td, "_kernels", _library(calls))
+    monkeypatch.setitem(td._scratch, 0, _fake_cuda(shape=(1024,)))
+    td.reset_launch_counts()
+    dtype = _I64 if fmt == td.WIDE else _I32
+    out = _fake_cuda(dtype=dtype, shape=(4, 4, 16) if scan else (4, 16))
+    cfg = _fake_cuda(shape=(128, 4)) if fmt == td.LEAN else None
+    got = td.decide_cuda(fmt, _fake_cuda(), _fake_cuda(dtype=dtype, shape=staging), cfg,
+                         NOW, scan, out)
+    assert got is out
+    assert {k: v for k, v in td.launch_counts.items() if v} == {key: 1}
+    (index, f, _t, C, _p, _c, _o, K, B, now, sc, _s, stream), = calls
+    assert (index, f, C, K, B, now, sc, stream) == (0, fmt, 64, 4 if scan else 1, 16, NOW,
+                                                    int(scan), 7)
