@@ -61,7 +61,30 @@ Run from the root of the repository. Phases, each fatal on failure:
    equal to the plain version's; the gather's pinned form at m in {1, 64}
    with the slots -1, C and C + 8; row_bump into a caller's out on an
    int32[10,000,000, 128] table (5.12 GB) against the plain version on a
-   clone; then the probe's own loop (gubernator_tpu_torch.bench_rows).
+   clone; then the probe's own loop (gubernator_tpu_torch.bench_rows);
+6. the serving pipeline: Engine(device="cuda", capacity=10_000_001,
+   widths 64-8192) after warmup() and warmup_pipeline(max_group=8), the
+   combiner's depth probe over (1, 3, 6) printed; phase 3's first 24
+   windows (196,608 requests) cut into client submissions of 1-512 requests
+   (log-uniform, from --seed) and one of 10,000 (the combiner's serial
+   path), now_ms + 1 every 64 submissions, from one async submitter through
+   BackendCombiner at depth 3 and scan 8, the first 400 submissions under
+   torch.profiler (the device's busy share); Engine(device="cpu") takes the
+   stream through a depth-1 combiner: responses must be equal, and so must
+   the table rows at every key the directory holds. Then direct
+   launch_windows groups of distinct keys at (K, W) in {2, 8} x {64, 1024,
+   8192}, each launched behind ~0.5 s of busy card (its slot's event must
+   still be pending when the launch returns: no launch waits on the card),
+   against the CPU twin. The stream runs again on fresh card engines at
+   depth 1, 1 and 3 (in turns with the first). Then 8 windows as wire
+   columns through launch_columnar_windows / collect_columnar_windows
+   (depth 3 and 1 in turns, scan 8, everything collected on a cut,
+   leftovers through get_rate_limits) against lock-step submit_columnar /
+   complete_columnar on a CPU twin. Prints decisions/s of every run, host
+   us per launch_windows and collect_windows, the combiner's stats, the
+   decide launches by format, form, K and W with the scan launches by the
+   path csrc/decide.cu takes (chunked or one launch a window), the slot
+   refills and inject-staging frees that had to wait.
 
 Device times come from torch.profiler, for the kernels and for each
 library call they are compared with; where the profiler gives none the
@@ -69,8 +92,9 @@ record holds null, never a host-clock time. Every line with a time ends
 with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
-3b, 4 and the bench_rows loop) and read just after; every kernel must have
-launched (each decide form and format on phases 3, 3b and 4 together),
+3b, 4, the bench_rows loop and each run of phase 6) and read just after;
+every kernel must have launched (each decide form and format on phases 3,
+3b, 4 and 6 together),
 inject and gather on phase 3, both through their pinned entry points
 only. The last two lines are the
 {"kernels": [...]} record and the contract line {"ok": true, "device":
@@ -85,6 +109,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1478,6 +1503,474 @@ def phase_rows(seed, dev, results):
     return errs, recs, launches["row_bump"]
 
 
+# ----------------------------------------------------------------- phase 6
+
+PIPE_WINDOWS = 24  # phase 3's windows the serving stream takes: 196,608 requests
+COL_WINDOWS = 8  # of them again, as wire columns
+PIPE_DEPTH, PIPE_SCAN = 3, 8
+BIG_SUBMISSION = 10_000  # over max_width: the combiner's serial path
+SUBS_PER_MS = 64  # submissions sharing one now_ms
+MAX_SUBMISSION = 512
+TRACED_SUBS = 400  # the first submissions of the depth-3 run, under the profiler
+COL_SLOW = GREG | int(Behavior.GLOBAL) | int(Behavior.MULTI_REGION)
+# direct group launches held against the CPU twin: (K, W) of distinct-key windows
+GROUP_SHAPES = ((2, 64), (8, 64), (2, 1024), (8, 1024), (2, 8192), (8, 8192))
+SLEEP_CYCLES = 1_000_000_000  # ~0.5 s of busy card queued before a group launch
+
+
+def serving_stream(seed):
+    """Phase 3's first PIPE_WINDOWS windows, flat, cut into client
+    submissions of 1-512 requests (log-uniform, from the seed) with one of
+    BIG_SUBMISSION requests half way."""
+    batches, _ = request_stream(seed, PIPE_WINDOWS)
+    flat = [r for _, batch in batches for r in batch]
+    rng = np.random.default_rng(seed + 6)
+    subs, pos, big = [], 0, len(flat) // 2
+    while pos < len(flat):
+        if big is not None and pos >= big:
+            n, big = BIG_SUBMISSION, None
+        else:
+            n = int(np.exp(rng.uniform(0.0, np.log(MAX_SUBMISSION + 1))))
+        subs.append(flat[pos:pos + n])
+        pos += n
+    return flat, subs
+
+
+def sub_now(i):
+    return NOW + i // SUBS_PER_MS
+
+
+def timed_methods(eng, names):
+    """Host clock around engine methods (instance attributes, so the
+    combiner calls the wrappers): {name: [calls, ns]}."""
+    spent = {n: [0, 0] for n in names}
+    for n in names:
+        def timed(*a, _fn=getattr(eng, n), _n=n, **kw):
+            t0 = time.perf_counter_ns()
+            out = _fn(*a, **kw)
+            rec = spent[_n]
+            rec[0] += 1
+            rec[1] += time.perf_counter_ns() - t0
+            return out
+
+        setattr(eng, n, timed)
+    return spent
+
+
+class TimedLock:
+    """The engine lock with its waits added up by thread name (the combiner's
+    worker launches, its drainer collects)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.wait_ns = {}
+
+    def __enter__(self):
+        t0 = time.perf_counter_ns()
+        self.inner.acquire()
+        name = threading.current_thread().name
+        self.wait_ns[name] = self.wait_ns.get(name, 0) + time.perf_counter_ns() - t0
+        return self
+
+    def __exit__(self, *exc):
+        self.inner.release()
+
+
+def timed_fetch():
+    """Host clock around WindowStaging.fetch (the wait on a slot's event and
+    the copy out of its response), for every engine; undo() restores it."""
+    from gubernator_tpu_torch.ops.staging import WindowStaging
+
+    spent = {"calls": 0, "ns": 0}
+    orig = WindowStaging.fetch
+
+    def fetch(handle):
+        t0 = time.perf_counter_ns()
+        out = orig(handle)
+        spent["calls"] += 1
+        spent["ns"] += time.perf_counter_ns() - t0
+        return out
+
+    WindowStaging.fetch = staticmethod(fetch)
+    spent["undo"] = lambda: setattr(WindowStaging, "fetch", staticmethod(orig))
+    return spent
+
+
+def drive_combiner(eng, subs, depth, traced=0):
+    """One async submitter through BackendCombiner(eng, depth, PIPE_SCAN):
+    the first `traced` submissions under torch.profiler (drained before the
+    rest go in), the rest timed on the host clock up to the last response.
+    Returns the responses as tuples and the measurements."""
+    from gubernator_tpu_torch.service.combiner import BackendCombiner
+
+    c = BackendCombiner(eng, depth=depth, scan=PIPE_SCAN)
+    check(c.pipelined == (depth > 1), f"the depth-{depth} combiner's pipeline is "
+          f"{'on' if c.pipelined else 'off'}")
+    m = dict(traced_s=0.0, busy_us=0.0)
+    got = []
+    try:
+        if traced:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                futs = [c.submit_async(s, sub_now(i)) for i, s in enumerate(subs[:traced])]
+                got += [f.result(timeout=600) for f in futs]
+                torch.cuda.synchronize()
+                m["traced_s"] = time.perf_counter() - t
+            m["busy_us"] = sum(e.self_device_time_total for e in prof.key_averages())
+        t = time.perf_counter()
+        futs = [c.submit_async(s, sub_now(i)) for i, s in enumerate(subs[traced:], traced)]
+        got += [f.result(timeout=600) for f in futs]
+        m["s"] = time.perf_counter() - t
+        m["n_req"] = sum(len(s) for s in subs[traced:])
+        m["stats"] = c.stats
+        m["slot_waits"] = sum(st.waits for slot in c._staging for st in slot.values())
+    finally:
+        c.close()
+    return [resp_tuples(rs) for rs in got], m
+
+
+def rows_by_key(eng):
+    """(keys sorted, their table rows) over every key the directory holds."""
+    items = sorted(eng.directory.items())
+    slots = torch.tensor([s for _, s in items], dtype=torch.int64)
+    return [k for k, _ in items], eng.state[slots.to(eng.state.device)].cpu()
+
+
+def chunk_paths(index, shapes):
+    """Scan launches by the path csrc/decide.cu takes (scan_chunk's rule):
+    {"chunked": n, "per_window": n} and the same by 'name K=.. W=..'."""
+    paths, by_shape = {"chunked": 0, "per_window": 0}, {}
+    for (name, k, w), n in sorted(shapes.items()):
+        if "_scan_" not in name:
+            continue
+        kc = dk.scan_chunk(index, FORMATS[name.rsplit("_", 1)[1]], k, w)
+        path = "chunked" if kc else "per_window"
+        paths[path] += n
+        by_shape[f"{name} K={k} W={w}"] = f"{n} {path}" + (f" (chunks of {kc})" if kc else "")
+    return paths, by_shape
+
+
+def shapes_line(shapes):
+    return {f"{name} K={k} W={w}": n for (name, k, w), n in sorted(shapes.items())}
+
+
+def distinct_group(flat, cursor, k, w):
+    """K windows of w requests in stream order from flat[cursor:], each
+    with distinct keys and no gregorian lane (nothing cuts the group;
+    hot keys recur across its windows). Returns the windows and the
+    cursor after them."""
+    wins = []
+    for _ in range(k):
+        seen, win = set(), []
+        while len(win) < w:
+            r = flat[cursor % len(flat)]
+            cursor += 1
+            key = r.hash_key()
+            if key not in seen and not r.behavior & GREG:
+                seen.add(key)
+                win.append(r)
+        wins.append(win)
+    return wins, cursor
+
+
+def group_checks(gpu, cpu, flat, now):
+    """Direct launch_windows / collect_windows of distinct-key groups at
+    every GROUP_SHAPES (K, W) on the card engine and its CPU twin, equal
+    answers. Each card launch goes in behind SLEEP_CYCLES of busy card:
+    its slot's event must still be pending when launch_windows returns (the
+    launch did not wait on the card). Returns the launch shapes, counted
+    between a reset and a read."""
+    dk.reset_launch_counts()
+    cursor, waited = 0, 0
+    for i, (k, w) in enumerate(GROUP_SHAPES):
+        wins, cursor = distinct_group(flat, cursor, k, w)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        h = gpu.launch_windows(wins, now_ms=now + i, staging={})
+        check(h is not None and len(h[0]) == 1, f"group K={k} W={w} was not one launch")
+        waited += h[0][0][0][0].done.query()
+        got = gpu.collect_windows(h)
+        want = cpu.collect_windows(cpu.launch_windows(wins, now_ms=now + i, staging={}))
+        check([resp_tuples(r) for r in got] == [resp_tuples(r) for r in want],
+              f"group K={k} W={w}: card and CPU engines answer differently")
+    check(waited == 0, f"{waited} of {len(GROUP_SHAPES)} group launches returned after "
+          "the card had finished them: launch_windows waited on the card")
+    return dict(dk.launch_shapes)
+
+
+def columnar_cols(reqs):
+    """The peerlink wire layout of one sub-window, as a launch tuple."""
+    names = [r.name.encode() for r in reqs]
+    ukeys = [r.unique_key.encode() for r in reqs]
+    off = np.zeros(len(reqs) + 1, np.int32)
+    np.cumsum([len(a) + len(b) for a, b in zip(names, ukeys)], out=off[1:])
+    return (len(reqs), b"".join(a + b for a, b in zip(names, ukeys)), off,
+            np.array([len(a) for a in names], np.int32),
+            np.array([r.hits for r in reqs], np.int64),
+            np.array([r.limit for r in reqs], np.int64),
+            np.array([r.duration for r in reqs], np.int64),
+            np.array([int(r.algorithm) for r in reqs], np.int32),
+            np.array([int(r.behavior) for r in reqs], np.int32))
+
+
+def columnar_loop(eng, reqs, now, depth):
+    """The peerlink loop: sub-windows by bucket_splits, scan groups of
+    PIPE_SCAN launched with `depth` in flight, collected in launch order;
+    on a cut, everything in flight is collected and the leftovers retire
+    through get_rate_limits, in order. depth 0: lock-step submit_columnar /
+    complete_columnar. Returns the four response columns and the host
+    seconds."""
+    import collections
+
+    from gubernator_tpu_torch.models.prep import bucket_pow2, bucket_splits, bucket_width
+
+    n = len(reqs)
+    outs = (np.zeros(n, np.int32), np.zeros(n, np.int64), np.zeros(n, np.int64),
+            np.zeros(n, np.int64))
+    spans, s0 = [], 0
+    for ln in bucket_splits(n, eng.min_width, eng.max_width):
+        spans.append((s0, s0 + ln))
+        s0 += ln
+    cols = [columnar_cols(reqs[a:b]) for a, b in spans]
+
+    def retire(a, left):
+        if len(left):
+            idx = (a + left).tolist()
+            for i, r in zip(idx, eng.get_rate_limits([reqs[i] for i in idx], now_ms=now)):
+                outs[0][i], outs[1][i], outs[2][i], outs[3][i] = (
+                    r.status, r.limit, r.remaining, r.reset_time)
+
+    slots = [dict() for _ in range(depth + 2)] if depth else []
+    widths = {bucket_width(b - a, eng.min_width, eng.max_width) for a, b in spans}
+    for slot in slots:  # set-up: every slot's page-locked staging, every shape
+        for k in {bucket_pow2(k) for k in range(1, PIPE_SCAN + 1)}:
+            for w in widths:
+                eng._slot_staging(slot, k, w)
+    t = time.perf_counter()
+    if depth == 0:
+        for (a, b), c in zip(spans, cols):
+            h = eng.submit_columnar(*c, COL_SLOW, now_ms=now)
+            check(h is not None, "submit_columnar refused a window")
+            retire(a, eng.complete_columnar(h, *(o[a:b] for o in outs)))
+        return outs, time.perf_counter() - t
+    inflight = collections.deque()
+    wi = seq = 0
+
+    def drain_one():
+        h, gspans = inflight.popleft()
+        gouts = [tuple(o[a:b] for o in outs) for a, b in gspans]
+        for (a, _b), left in zip(gspans, eng.collect_columnar_windows(h, gouts)):
+            retire(a, left)
+
+    while wi < len(spans) or inflight:
+        barrier = False
+        while wi < len(spans) and len(inflight) < depth:
+            group = cols[wi:wi + PIPE_SCAN]
+            h = eng.launch_columnar_windows(group, COL_SLOW, now_ms=now,
+                                            staging=slots[seq % len(slots)])
+            check(h is not None and h[1] is None, f"launch_columnar_windows: {h and h[1]}")
+            seq += 1
+            consumed = len(h[0])
+            inflight.append((h, spans[wi:wi + consumed]))
+            wi += consumed
+            if consumed < len(group) or len(h[0][-1][-1]):  # a cut: barrier
+                barrier = True
+                break
+        if barrier or wi >= len(spans):
+            while inflight:
+                drain_one()
+        elif inflight:
+            drain_one()
+    return outs, time.perf_counter() - t
+
+
+def phase_pipeline(seed, dev, results):
+    log(f"== phase 6: the serving pipeline, Engine(capacity={CAPACITY}, widths 64-{WINDOW}) "
+        f"behind BackendCombiner: {PIPE_WINDOWS} windows of phase 3's stream as client "
+        f"submissions, depth {PIPE_DEPTH} scan {PIPE_SCAN} and depth 1 on the card, depth 1 "
+        f"on the CPU twin; then {COL_WINDOWS} windows as wire columns")
+    flat, subs = serving_stream(seed)
+    check(len(flat) == PIPE_WINDOWS * WINDOW and sum(map(len, subs)) == len(flat),
+          "the serving stream lost requests")
+    tlog(f"  {len(subs)} submissions of 1-{MAX_SUBMISSION} requests and one of "
+         f"{BIG_SUBMISSION}, {len(flat)} requests, now_ms + 1 every {SUBS_PER_MS}")
+    os.environ.pop("GUBER_NO_NATIVE", None)
+    out = results["pipeline"] = {}
+    launches = dict.fromkeys([*dk.launch_counts, *rowk.launch_counts], 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 1. build and warm the card engine; the depth probe
+    t = time.perf_counter()
+    gpu = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    gpu.warmup()
+    gpu.warmup_pipeline(max_group=PIPE_SCAN)
+    from gubernator_tpu_torch.service.combiner import BackendCombiner
+
+    probe = BackendCombiner(gpu, depth="auto", scan=PIPE_SCAN)
+    try:
+        picked = probe.autotune(depths=(1, 3, 6))
+    finally:
+        probe.close()
+    check(gpu.key_count() == 0, "the depth probe touched the table")
+    out["autotune_depth"] = picked
+    tlog(f"  engine built, warmed (warmup + warmup_pipeline) and probed in "
+         f"{time.perf_counter() - t:.2f} s; autotune over (1, 3, 6) picked depth {picked}")
+
+    # 2. the stream at depth 3, its first TRACED_SUBS submissions traced
+    spent = timed_methods(gpu, ("launch_windows", "collect_windows"))
+    tails = {"calls": 0, "requests": 0, "ns": 0}
+
+    def tail(requests, now_ms, count_batch=True, _fn=gpu._slow_window):
+        t0 = time.perf_counter_ns()
+        resp = _fn(requests, now_ms, count_batch)
+        if not count_batch:  # a leftover tail
+            tails["calls"] += 1
+            tails["requests"] += len(requests)
+            tails["ns"] += time.perf_counter_ns() - t0
+        return resp
+
+    gpu._slow_window = tail
+    gpu._inject.waits = 0
+    lock = gpu._lock = TimedLock(gpu._lock)
+    fetched = timed_fetch()
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    try:
+        got3, m3 = drive_combiner(gpu, subs, PIPE_DEPTH, traced=TRACED_SUBS)
+    finally:
+        fetched.pop("undo")()
+    # the combiner's calls only: the group checks below call the engine too
+    lock_wait_s = {k: v / 1e9 for k, v in lock.wait_ns.items()}
+    calls = {n: list(v) for n, v in spent.items()}
+    tails3, inject_waits = dict(tails), gpu._inject.waits
+    add(dk.launch_counts)
+    add(rowk.launch_counts)
+    shapes3 = dict(dk.launch_shapes)
+    index = gpu.state.get_device()
+    paths3, path_shapes3 = chunk_paths(index, shapes3)
+    st = m3["stats"]
+    check(st["pipelined_windows"] > 0 and st["group_launches"] > 0,
+          f"the depth-{PIPE_DEPTH} run launched nothing pipelined: {st}")
+
+    # 3. the CPU twin at depth 1: equal answers
+    cpu = Engine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    want, mc = drive_combiner(cpu, subs, 1)
+    check(got3 == want, f"depth {PIPE_DEPTH} on the card and depth 1 on the CPU answer "
+          "differently")
+    group_shapes = group_checks(gpu, cpu, flat, sub_now(len(subs)) + 1)
+    group_paths, group_path_shapes = chunk_paths(index, group_shapes)
+    gk, gr = rows_by_key(gpu)
+    ck, cr = rows_by_key(cpu)
+    check(gk == ck and torch.equal(gr, cr), "the card and CPU tables differ at the "
+          "directory's keys")
+    rate3 = m3["n_req"] / m3["s"]
+    busy = m3["busy_us"] / 1e6 / m3["traced_s"] if m3["traced_s"] else None
+    launch_us = calls["launch_windows"][1] / max(calls["launch_windows"][0], 1) / 1e3
+    collect_us = calls["collect_windows"][1] / max(calls["collect_windows"][0], 1) / 1e3
+    del gpu
+    torch.cuda.empty_cache()
+
+    # the timing pairs, in turns: the same stream at depth 1, 1 and PIPE_DEPTH,
+    # each on a fresh card engine warmed as the first
+    rates = {PIPE_DEPTH: [m3["n_req"] / m3["s"]], 1: []}
+    for depth in (1, 1, PIPE_DEPTH):
+        eng = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+        eng.warmup()
+        eng.warmup_pipeline(max_group=PIPE_SCAN)
+        dk.reset_launch_counts()
+        rowk.reset_launch_counts()
+        got, m = drive_combiner(eng, subs, depth, traced=TRACED_SUBS)
+        add(dk.launch_counts)
+        add(rowk.launch_counts)
+        check(got == want, f"depth {depth} on the card and depth 1 on the CPU answer "
+              "differently")
+        rates[depth].append(m["n_req"] / m["s"])
+        del eng
+        torch.cuda.empty_cache()
+    rate3, rate1 = float(np.mean(rates[PIPE_DEPTH])), float(np.mean(rates[1]))
+    launch_tail_free_us = ((calls["launch_windows"][1] - tails3["ns"])
+                           / max(calls["launch_windows"][0], 1) / 1e3)
+    out.update(
+        submissions=len(subs), requests=len(flat), decisions_per_s_depth3=rate3,
+        decisions_per_s_depth1=rate1, decisions_per_s_runs=rates,
+        cpu_twin_decisions_per_s=mc["n_req"] / mc["s"],
+        device_busy_share=busy, traced_submissions=TRACED_SUBS, stats=st,
+        launch_windows_us=launch_us, launch_windows_tail_free_us=launch_tail_free_us,
+        collect_windows_us=collect_us, fetch_calls=fetched["calls"],
+        fetch_us=fetched["ns"] / max(fetched["calls"], 1) / 1e3, lock_wait_s=lock_wait_s,
+        launch_windows_calls=calls["launch_windows"][0],
+        tail_retires=tails3, inject_waits=inject_waits, slot_waits=m3["slot_waits"],
+        decide_shapes=shapes_line(shapes3), scan_paths=paths3,
+        scan_path_shapes=path_shapes3, group_check_shapes=shapes_line(group_shapes),
+        group_check_paths=group_paths, group_check_path_shapes=group_path_shapes,
+        keys=len(gk))
+    tlog(f"  equal answers (4 card runs, depth 1 CPU) and equal rows at all {len(gk)} keys; "
+         f"object path, runs in turns ({PIPE_DEPTH}, 1, 1, {PIPE_DEPTH}): depth {PIPE_DEPTH} "
+         + ", ".join(f"{r:,.0f}" for r in rates[PIPE_DEPTH]) + " decisions/s, depth 1 "
+         + ", ".join(f"{r:,.0f}" for r in rates[1]) + f" decisions/s (CPU twin "
+         f"{mc['n_req'] / mc['s']:,.0f}/s); {m3['n_req']} requests timed a run, the first "
+         f"{TRACED_SUBS} submissions traced apart")
+    tlog(f"  device busy {busy} of the traced stretch's wall time ({m3['traced_s']:.3f} s)")
+    tlog(f"  host us per launch_windows {launch_us:.1f} ({calls['launch_windows'][0]} calls, "
+         f"leftover tails included: {tails3['calls']} tails, {tails3['requests']} requests, "
+         f"{tails3['ns'] / 1e9:.3f} s; {launch_tail_free_us:.1f} without them), per "
+         f"collect_windows {collect_us:.1f} (first depth-{PIPE_DEPTH} run), of which the "
+         f"slot's event wait and copy-out {fetched['ns'] / max(fetched['calls'], 1) / 1e3:.1f} "
+         f"({fetched['calls']} fetches); engine-lock waits by thread (s) "
+         f"{json.dumps(lock_wait_s)}")
+    tlog(f"  combiner stats {json.dumps(st)}; slot refills that waited {m3['slot_waits']}; "
+         f"windows that waited on the inject staging {inject_waits}")
+    tlog(f"  decide launches by format, form, K and W (depth {PIPE_DEPTH} run): "
+         f"{json.dumps(shapes_line(shapes3))}")
+    tlog(f"  scan launches by path (depth {PIPE_DEPTH} run): {json.dumps(paths3)} "
+         f"{json.dumps(path_shapes3)}")
+    tlog(f"  group checks (distinct keys, launch behind a busy card, each still pending "
+         f"when launch_windows returned; equal to the CPU twin): {json.dumps(group_paths)} "
+         f"{json.dumps(group_path_shapes)}")
+
+    # 4. columnar: COL_WINDOWS windows as wire columns, depth 3 and 1 on the card
+    # against lock-step submit_columnar / complete_columnar on the CPU
+    reqs = flat[:COL_WINDOWS * WINDOW]
+    col_now = NOW + 10_000
+    twin = Engine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    want_cols, twin_s = columnar_loop(twin, reqs, col_now, 0)
+    tk, tr = rows_by_key(twin)
+    col = {PIPE_DEPTH: [], 1: []}
+    for depth in (PIPE_DEPTH, 1, 1, PIPE_DEPTH):
+        eng = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+        eng.warmup()
+        dk.reset_launch_counts()
+        rowk.reset_launch_counts()
+        got_cols, secs = columnar_loop(eng, reqs, col_now, depth)
+        add(dk.launch_counts)
+        add(rowk.launch_counts)
+        for g, w_ in zip(got_cols, want_cols):
+            check(np.array_equal(g, w_), f"columnar depth {depth}: card and CPU twin "
+                  "answer differently")
+        ek, er = rows_by_key(eng)
+        check(ek == tk and torch.equal(er, tr), f"columnar depth {depth}: tables differ")
+        col[depth].append(len(reqs) / secs)
+        del eng
+        torch.cuda.empty_cache()
+    out.update(columnar_requests=len(reqs),
+               columnar_decisions_per_s_depth3=float(np.mean(col[PIPE_DEPTH])),
+               columnar_decisions_per_s_depth1=float(np.mean(col[1])),
+               columnar_decisions_per_s_runs=col,
+               columnar_cpu_twin_decisions_per_s=len(reqs) / twin_s, launches=launches)
+    tlog(f"  columnar ({len(reqs)} requests), runs in turns ({PIPE_DEPTH}, 1, 1, "
+         f"{PIPE_DEPTH}), staging allocated before the clock: equal answers and rows; depth "
+         f"{PIPE_DEPTH} " + ", ".join(f"{r:,.0f}" for r in col[PIPE_DEPTH])
+         + " decisions/s, depth 1 " + ", ".join(f"{r:,.0f}" for r in col[1])
+         + f" decisions/s (CPU twin lock-step {len(reqs) / twin_s:,.0f}/s); phase 6 "
+         f"launches {launches}")
+    del cpu, twin
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1520,6 +2013,7 @@ def main(argv=None) -> int:
     py_launches = phase_engine_python(args.seed, PYTHON_DIR_WINDOWS, dev, results)
     glob_launches, ring_main = phase_global(args.seed, dev, results)
     row_errs, row_recs, bump_launches = phase_rows(args.seed, dev, results)
+    pipe_launches = phase_pipeline(args.seed, dev, results)
 
     kernels = []
     for name in dk.launch_counts:
@@ -1528,7 +2022,7 @@ def main(argv=None) -> int:
                           if r["kernel"] == name and r["kind"] == "windows"
                           and r["width"] == (64 if scan else WINDOW)
                           and r["scan_k"] == (32 if scan else 0))
-        n = eng_launches[name] + py_launches[name] + glob_launches[name]
+        n = eng_launches[name] + py_launches[name] + glob_launches[name] + pipe_launches[name]
         check(n > 0, f"{name} was never launched on the main path")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -1547,7 +2041,7 @@ def main(argv=None) -> int:
         library_device_ms=ring_main["library_device_ms"], call_ms=ring_main["call_ms"],
         shape=f"S={GLOBAL_SHARDS}, L={ring_main['L']}"))
     for name in ("inject_rows", "gather_rows", "row_bump"):
-        n = bump_launches if name == "row_bump" else eng_launches[name]
+        n = bump_launches if name == "row_bump" else eng_launches[name] + pipe_launches[name]
         check(n > 0, f"{name} was never launched on its main path")
         r = next(r for r in row_recs if r["kernel"] == name
                  and r["m"] == ROW_MAIN_M.get(name, r["m"])

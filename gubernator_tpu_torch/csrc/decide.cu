@@ -968,6 +968,25 @@ extern "C" int decide_launch(int device, int fmt, void* table, long long capacit
 // Words of the published-copy scratch the caller allocates per card.
 extern "C" int decide_scratch_words() { return kScratchSlots * kScratchWords; }
 
+// How decide_launch runs a scan of K windows of B lanes in format `fmt` on
+// `device`: *kc is the windows a chunk of the scan kernel takes (scan_chunk's
+// rule), 0 when not one window fits on chip and each window gets a launch of
+// its own. Launches nothing. Returns a CUDA error code (0 on success).
+extern "C" int decide_scan_chunk(int device, int fmt, int K, int B, int* kc) {
+  int err = set_device(device);
+  if (err != 0) return err;
+  size_t limit = 0;
+  switch (fmt) {
+    case WIDE: err = scan_smem_limit<WIDE>(device, &limit); break;
+    case COMPACT: err = scan_smem_limit<COMPACT>(device, &limit); break;
+    case LEAN: err = scan_smem_limit<LEAN>(device, &limit); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  *kc = scan_chunk(fmt, K, B, limit);
+  return 0;
+}
+
 // For a sweep on the card: the one-window block size and the blocks a scan
 // group's rows are spread over, for later launches; 0 restores the
 // constant. Returns cudaErrorInvalidValue (and changes nothing) for a block

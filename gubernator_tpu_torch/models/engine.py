@@ -20,22 +20,26 @@ its request-object path. The engine owns:
   injects the mirror's row back into the table first.
 
 On CUDA every window is one host-to-device copy of its staging, one launch
-of csrc/decide.cu and one copy of the response back. Mirror rows go in
-through csrc/rows.cu's inject with no copy: the key directory writes them
-into a page-locked i64[max_width, 8] buffer the engine allocates once
-(ops/rows.py InjectStaging), and the kernel reads them there through its
-mapped address; the buffer is handed to the directory again only after the
-last inject that reads it has run (an event per inject), since a scan group
-may look up, and inject, many windows before its one wait. seed_mirror's
-one-slot gather reads its slot from, and writes its row to, two page-locked
-host buffers the engine allocates once: no copy either way, one wait on the
-stream. On the CPU the same path runs the plain PyTorch versions. The engine
-is synchronous and thread-safe through one lock.
+of csrc/decide.cu and one copy of the response back. get_rate_limits waits
+for its response; the pipelined calls (launch_windows / collect_windows and
+their columnar twins, driven by service/combiner.py) do not: each pipeline
+slot stages through its own page-locked buffers (ops/staging.py), copies up
+and back without blocking, and collect waits on the slot's event alone.
+Mirror rows go in through csrc/rows.cu's inject with no copy: the key
+directory writes them into a page-locked i64[max_width, 8] buffer the engine
+allocates once (ops/rows.py InjectStaging), and the kernel reads them there
+through its mapped address; the buffer is handed to the directory again only
+after the last inject that reads it has run (an event per inject), since a
+scan group may look up, and inject, many windows before its one wait.
+seed_mirror's one-slot gather reads its slot from, and writes its row to,
+two page-locked host buffers the engine allocates once: no copy either way,
+one wait on the stream. On the CPU the same path runs the plain PyTorch versions. The engine
+is thread-safe through one lock, which launches hold and collects take only
+to add up their counters.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch import native
+from gubernator_tpu_torch.obs import witness
 from gubernator_tpu_torch.models.prep import (
     bucket_pow2 as _bucket_pow2,
     bucket_width as _bucket_width,
@@ -70,6 +75,7 @@ from gubernator_tpu_torch.ops.rows import (
     inject_rows,
     sync_stream,
 )
+from gubernator_tpu_torch.ops.staging import WindowStaging
 from gubernator_tpu_torch.types import (
     SLOW_PATH_BEHAVIOR_MASK as _NATIVE_SINGLE_SLOW_MASK,
     Behavior,
@@ -156,7 +162,7 @@ class Engine:
         # one kernel round must never need more distinct slots than exist
         self.max_width = min(max_width, capacity)
         self.stats = EngineStats()
-        self._lock = threading.Lock()
+        self._lock = witness.make_lock("engine")
         # lean staging needs every slot to fit the 24-bit lane field
         self._lean_ok = lean_capacity_ok(capacity)
         # "auto" ships each window on the leanest eligible format; "wide"
@@ -373,6 +379,449 @@ class Engine:
             for i, resp in zip(idxs, tail):
                 responses[i] = resp
         return responses  # type: ignore[return-value]
+
+    # ----------------------------------------------------- pipelined serving
+    # The launch/collect split of the request-object path, as the JAX
+    # package has it: service/combiner.py keeps up to `depth` window groups
+    # in flight. Per-key sequential semantics survive because (a) launches
+    # are serialized under the engine lock, so host prep order is launch
+    # order, and (b) every launch updates the one table in place on one
+    # stream, so the card applies the windows in that order. Leftover lanes
+    # (duplicate occurrences, gregorian, invalid) retire AT LAUNCH, between
+    # this group's launch and any later one, so a key's later arrivals
+    # never overtake its packed first occurrence (tests/test_pipeline.py's
+    # differentials, run through both packages by
+    # tests/test_torch_pipeline.py). No launch waits on the card for its
+    # own response: collect does, on the slot's event (ops/staging.py).
+
+    def supports_pipeline(self) -> bool:
+        """True when the non-blocking launch/collect split is available: the
+        native one-pass prep (the port has no Store hooks)."""
+        return self._prep_fast is not None
+
+    def _slot_staging(self, staging, kb: int, w: int) -> WindowStaging:
+        """The pipeline slot's staging for a (kb, 9, w) group: from the
+        slot's dict (keyed by shape), or allocated (and parked there)."""
+        shape = (kb, 9, w)
+        st = None if staging is None else staging.get(shape)
+        if st is None:
+            st = WindowStaging.allocate(kb, w, self.device)
+            if staging is not None:
+                staging[shape] = st
+        return st
+
+    def launch_windows(self, windows, now_ms: Optional[int] = None,
+                       staging=None):
+        """Launch 1..K request-object windows as ONE decide launch (K > 1
+        rides the scan kernel) without waiting for the response.
+
+        `windows` is a list of request lists, each 0 < len <= max_width;
+        `staging`, when given, is a dict the engine parks the slot's staging
+        in (ops/staging.py, keyed by shape): the combiner hands each
+        pipeline slot its own dict, and a slot's buffers are refilled only
+        once the card is done with its last launch. Returns an opaque handle
+        for collect_windows, or None when the pipelined path cannot take the
+        group at all (nothing mutated, nothing launched)."""
+        if not self.supports_pipeline():
+            return None
+        k_req = len(windows)
+        if not 0 < k_req <= self._MAX_SCAN:
+            return None
+        if any(not 0 < len(wk) <= self.max_width for wk in windows):
+            return None
+        if now_ms is None:
+            now_ms = millisecond_now()
+        w = max(_bucket_width(len(wk), self.min_width, self.max_width)
+                for wk in windows)
+        kb = _bucket_pow2(k_req) if k_req > 1 else 1
+        st = self._slot_staging(staging, kb, w)
+        buf = st.acquire()
+        # Segmented group launch. A window whose prep yields LEFTOVERS cuts
+        # the group: the segment so far launches and its tails retire before
+        # any later window preps. Otherwise a key pending in window k's tail
+        # could be overtaken by its next arrival packed into window k+1 of
+        # the same launch. Distinct keys with hits=1 never cut: one scan
+        # launch for the whole group.
+        meta: List[Optional[tuple]] = [None] * k_req
+        tails: List[Optional[list]] = [None] * k_req
+        segments = []  # (slot handle, k_start, m) in launch order
+        k = 0
+        while k < k_req:
+            seg_start = k
+            with self._lock:
+                t0 = time.perf_counter_ns()  # excludes the lock wait
+                total = 0
+                rounds = 0
+                cut = False
+                while k < k_req and not cut:
+                    wk = windows[k]
+                    n0, lane_item, leftover, inject = self._prep_fast(
+                        self.directory, wk, buf[k], _GREG_MASK,
+                        self._inject_rows_out())
+                    if n0 == native.PREP_OVERCOMMIT:
+                        self._apply_inject_rows(inject)
+                        raise RuntimeError(
+                            f"key directory over-committed: "
+                            f">{self.capacity} distinct keys in one lookup")
+                    if n0 < 0:
+                        # defensive: the size checks above rule this out;
+                        # nothing was committed for THIS window, so it
+                        # retires whole through the python tail
+                        buf[k][0, :] = -1
+                        meta[k] = (0, None,
+                                   np.arange(len(wk), dtype=np.int32))
+                        k += 1
+                        cut = True
+                        break
+                    self._apply_inject_rows(inject)
+                    if n0 == 0:
+                        buf[k][0, :] = -1  # prep leaves the slot row zeroed
+                    meta[k] = (n0, lane_item, leftover)
+                    total += n0
+                    rounds += 1 if n0 else 0
+                    k += 1
+                    cut = len(leftover) > 0
+                m = k - seg_start
+                t1 = time.perf_counter_ns()
+                self.stats.stage_ns["prep"] += t1 - t0
+                self.stats.requests += total
+                self.stats.batches += m
+                self.stats.rounds += rounds
+                # a scan of m windows is padded to pow2(m): never with the
+                # not-yet-prepped windows after a cut
+                staged = self._dispatch_slot(st, seg_start, m, now_ms, m > 1)
+                self.stats.stage_ns["device"] += time.perf_counter_ns() - t1
+            segments.append((staged, seg_start, m))
+            # Leftover tails retire NOW, after this segment's launch and
+            # before any later window preps, as the serial path orders them.
+            # _slow_window waits for its own responses; rare path.
+            for kk in range(seg_start, k):
+                leftover = meta[kk][2]
+                if leftover is not None and len(leftover):
+                    idxs = leftover.tolist()
+                    tails[kk] = self._slow_window(
+                        [windows[kk][i] for i in idxs], now_ms,
+                        count_batch=False)
+        return (segments, windows, meta, tails)
+
+    def collect_windows(self, handle):
+        """Wait for a launched group's responses (in launch order) and
+        demux: one response list per window, in launch order. Runs outside
+        the engine lock (launch order is already fixed), so later launches
+        proceed while this one drains."""
+        segments, windows, meta, tails = handle
+        results: List[Optional[list]] = [None] * len(windows)
+        over = 0
+        t_fetch = 0
+        t0 = time.perf_counter_ns()
+        for staged, seg_start, m in segments:
+            tf = time.perf_counter_ns()
+            out = WindowStaging.fetch(staged)  # waits on this slot's event only
+            t_fetch += time.perf_counter_ns() - tf
+            scanned = staged[3]
+            for k in range(seg_start, seg_start + m):
+                wk = windows[k]
+                n0, lane_item, leftover = meta[k]
+                responses: List[Optional[RateLimitResp]] = [None] * len(wk)
+                if n0:
+                    rows = out[k - seg_start] if scanned else out
+                    status, limit, remaining, reset = rows[:, :n0].tolist()
+                    over += status.count(1)
+                    if n0 == len(wk):
+                        # nothing was skipped, so lanes are in request order
+                        responses = [
+                            RateLimitResp(st, li, re_, rs)
+                            for st, li, re_, rs in zip(
+                                status, limit, remaining, reset)
+                        ]
+                    else:
+                        for j, i in enumerate(lane_item.tolist()):
+                            responses[i] = RateLimitResp(
+                                status[j], limit[j], remaining[j], reset[j])
+                tail = tails[k]
+                if tail is not None:
+                    for i, resp in zip(leftover.tolist(), tail):
+                        responses[i] = resp
+                results[k] = responses
+        t2 = time.perf_counter_ns()
+        with self._lock:  # concurrent completers: counters stay exact
+            self.stats.over_limit += over
+            self.stats.stage_ns["device"] += t_fetch
+            self.stats.stage_ns["demux"] += t2 - t0 - t_fetch
+        return results
+
+    def launch_noop(self, width: Optional[int] = None):
+        """Launch one all-padding window (every lane drops: the table is not
+        touched) and return its handle: the combiner's depth probe times
+        these. Each has a staging of its own, so probes in flight never
+        wait on each other."""
+        st = WindowStaging.allocate(1, width or self.min_width, self.device)
+        st.acquire()[0, 0, :] = -1
+        with self._lock:
+            return self._dispatch_slot(st, 0, 1, 0, False)
+
+    def collect_noop(self, handle) -> None:
+        """Wait for a launch_noop's response."""
+        WindowStaging.fetch(handle)
+
+    def warmup_pipeline(self, max_group: int = 8) -> None:
+        """Run the group-launch scan shapes (pow2 depths <= max_group at
+        max_width) the pipelined combiner launches under bursts, every
+        staging format, on all-padding windows (the table is not touched).
+        Separate from warmup() so the extra boot cost is opt-in."""
+        if not self.supports_pipeline():
+            return
+        both = self._staging != "wide"
+        with self._lock:
+            k = 2
+            while k <= min(max_group, self._MAX_SCAN):
+                stacked = np.zeros((k, 9, self.max_width), np.int64)
+                stacked[:, 0, :] = -1
+                decide_scan_packed(self.state, self._up(stacked), 0)
+                if both:
+                    decide_scan_packed_compact(
+                        self.state, self._up(compact_window(stacked)), 0)
+                    if self._lean_ok:
+                        ln = lean_window(stacked, self.capacity)
+                        decide_scan_packed_lean(self.state, self._up(ln[0]),
+                                                self._up(ln[1]), 0)
+                k *= 2
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _dispatch_slot(self, st: WindowStaging, s: int, m: int, now_ms,
+                       scan: bool):
+        """Decide windows s..s+m of a slot's staging as one launch (a scan
+        when `scan`, padded on the device to pow2(m) windows), shipped lean
+        when eligible, compact otherwise, wide as the last resort: the
+        _dispatch_staged choice, made on the same rows. The derived rows go
+        into the slot's buffers at the same windows, the config table at
+        s; the response is queued into the slot's response buffer. Returns
+        the handle for WindowStaging.fetch. Caller holds the engine lock."""
+        src = st.wide_np[s:s + m] if scan else st.wide_np[s]
+        kb2 = _bucket_pow2(m) if scan else 0
+        if self._staging != "wide":
+            if self._lean_ok:
+                ln = lean_window(src, self.capacity)
+                if ln is not None:
+                    st.np["lean"][s:s + m] = ln[0]
+                    st.np["cfg"][s] = ln[1]
+                    fn = decide_scan_packed_lean if scan else decide_packed_lean
+                    out = fn(self.state, st.up("lean", s, m, kb2), st.up_cfg(s),
+                             now_ms)
+                    return st.keep(out, s, m, scan, now_ms)
+            c = compact_window(src)
+            if c is not None:
+                st.np["compact"][s:s + m] = c
+                fn = decide_scan_packed_compact if scan else decide_packed_compact
+                out = fn(self.state, st.up("compact", s, m, kb2), now_ms)
+                return st.keep(out, s, m, scan, now_ms)
+        fn = decide_scan_packed if scan else decide_packed
+        out = fn(self.state, st.up("wide", s, m, kb2), now_ms)
+        return st.keep(out, s, m, scan, None)
+
+    # ------------------------------------------------------- columnar path
+
+    def supports_columnar(self) -> bool:
+        """True when the zero-object serving path is available: the native
+        directory (the port has no Store hooks)."""
+        return self._prep_fast is not None
+
+    def submit_columnar(self, n: int, keys, key_off, name_len, hits, limit,
+                        duration, algorithm, behavior, slow_mask: int,
+                        now_ms: Optional[int] = None):
+        """Launch one columnar window: the wire columns (peerlink's
+        pls_next_batch layout) go through the GIL-free C prep straight into
+        the staging rows and onto the device, no RateLimitReq objects.
+
+        Returns a handle for complete_columnar, or None when the columnar
+        path cannot take the window at all (nothing mutated). The launch
+        does not wait: callers may submit further windows before completing
+        earlier ones. Items the C pass cannot take come back as `leftover`
+        indices from complete_columnar: run them through the request-object
+        path AFTER this round."""
+        if not 0 < n <= self.max_width:
+            return None
+        if now_ms is None:
+            now_ms = millisecond_now()
+        st = WindowStaging.allocate(
+            1, _bucket_width(n, self.min_width, self.max_width), self.device)
+        packed = st.acquire()[0]
+        with self._lock:
+            t0 = time.perf_counter_ns()  # excludes the lock wait
+            n0, lane_item, leftover, inject = native.prep_pack_columnar(
+                self.directory, n, keys, key_off, name_len, hits, limit,
+                duration, algorithm, behavior, slow_mask, packed,
+                self._inject_rows_out())
+            if n0 == native.PREP_OVERCOMMIT:
+                self._apply_inject_rows(inject)
+                raise RuntimeError(
+                    f"key directory over-committed: >{self.capacity} "
+                    "distinct keys in one lookup")
+            if n0 < 0:
+                return None
+            t1 = time.perf_counter_ns()
+            self.stats.stage_ns["prep"] += t1 - t0
+            self.stats.requests += n0
+            self.stats.batches += 1
+            self._apply_inject_rows(inject)
+            handle = None
+            if n0:
+                self.stats.rounds += 1
+                handle = self._dispatch_slot(st, 0, 1, now_ms, False)
+                self.stats.stage_ns["device"] += time.perf_counter_ns() - t1
+        return (handle, lane_item, leftover, n0)
+
+    def complete_columnar(self, handle, out_status, out_limit,
+                          out_remaining, out_reset) -> np.ndarray:
+        """Wait for a submitted window and scatter the four response rows
+        into the caller's columns at the packed items' positions (outside
+        the engine lock: launch order is already fixed). Returns the
+        leftover item indices."""
+        staged, lane_item, leftover, n0 = handle
+        if n0:
+            t0 = time.perf_counter_ns()
+            rows = WindowStaging.fetch(staged)
+            t1 = time.perf_counter_ns()
+            out_status[lane_item] = rows[0, :n0]
+            out_limit[lane_item] = rows[1, :n0]
+            out_remaining[lane_item] = rows[2, :n0]
+            out_reset[lane_item] = rows[3, :n0]
+            over = int(np.count_nonzero(rows[0, :n0] == 1))
+            t2 = time.perf_counter_ns()
+            with self._lock:  # concurrent completers: counters stay exact
+                self.stats.over_limit += over
+                self.stats.stage_ns["device"] += t1 - t0
+                self.stats.stage_ns["demux"] += t2 - t1
+        return leftover
+
+    # ------------------------------------------- pipelined columnar serving
+    # The launch/collect split of the columnar path: the zero-object twin of
+    # launch_windows/collect_windows, as the JAX package's peerlink service
+    # drives it. Per-key wire order holds by the same argument, and a
+    # window whose prep yields LEFTOVERS cuts the group: the caller must
+    # collect and retire them through the request-object path before
+    # launching any later sub-window.
+
+    def launch_columnar_windows(self, windows, slow_mask: int,
+                                now_ms: Optional[int] = None, staging=None):
+        """Launch a PREFIX of 1..K columnar sub-windows as ONE decide launch
+        (K > 1 rides the scan kernel) without waiting for the response.
+
+        `windows` is a list of column tuples (n, keys, key_off, name_len,
+        hits, limit, duration, algorithm, behavior) in the peerlink wire
+        layout (see submit_columnar), each 0 < n <= max_width; `staging`
+        follows the launch_windows contract. Windows prep in order under ONE
+        lock hold; the first window whose prep yields leftovers is the LAST
+        window launched (the group-cut barrier).
+
+        Returns None when the path cannot take the FIRST window at all
+        (nothing mutated: fall back to the object path); otherwise an opaque
+        handle for collect_columnar_windows: handle[0] is the per-window
+        meta list (len = windows CONSUMED, each meta's last element the
+        leftover item indices) and handle[1] an over-commit error message
+        or None. On over-commit the windows prepped before the failure still
+        launch (their directory commits must reach the device); the failing
+        window and everything after it are NOT consumed (the caller
+        error-fills their items)."""
+        if not self.supports_columnar():
+            return None
+        k_req = len(windows)
+        if not 0 < k_req <= self._MAX_SCAN:
+            return None
+        if any(not 0 < wc[0] <= self.max_width for wc in windows):
+            return None
+        if now_ms is None:
+            now_ms = millisecond_now()
+        w = max(_bucket_width(wc[0], self.min_width, self.max_width)
+                for wc in windows)
+        kb = _bucket_pow2(k_req) if k_req > 1 else 1
+        st = self._slot_staging(staging, kb, w)
+        buf = st.acquire()
+        metas: List[tuple] = []
+        failed = None
+        with self._lock:
+            t0 = time.perf_counter_ns()  # excludes the lock wait
+            total = 0
+            rounds = 0
+            for k, wc in enumerate(windows):
+                (n, keys, key_off, name_len, hits, limit, duration,
+                 algorithm, behavior) = wc
+                n0, lane_item, leftover, inject = native.prep_pack_columnar(
+                    self.directory, n, keys, key_off, name_len, hits,
+                    limit, duration, algorithm, behavior, slow_mask,
+                    buf[k], self._inject_rows_out())
+                if n0 == native.PREP_OVERCOMMIT:
+                    # earlier windows committed directory state and MUST
+                    # still launch; this window and the rest are not
+                    # consumed (the caller error-fills their items)
+                    self._apply_inject_rows(inject)
+                    buf[k][0, :] = -1  # partially-written row: all padding
+                    failed = (f"key directory over-committed: "
+                              f">{self.capacity} distinct keys in one "
+                              "lookup")
+                    break
+                if n0 < 0:
+                    if k == 0:
+                        return None  # nothing mutated: object-path fallback
+                    # defensive: the size checks rule this out; nothing was
+                    # committed for THIS window, so it retires whole through
+                    # the caller's leftover path, cutting the group here
+                    buf[k][0, :] = -1
+                    metas.append((0, None, np.arange(n, dtype=np.int32)))
+                    break
+                self._apply_inject_rows(inject)
+                if n0 == 0:
+                    buf[k][0, :] = -1  # prep leaves the slot row zeroed
+                metas.append((n0, lane_item, leftover))
+                total += n0
+                rounds += 1 if n0 else 0
+                if len(leftover):
+                    break  # group-cut barrier: leftovers retire first
+            m = len(metas)
+            t1 = time.perf_counter_ns()
+            self.stats.stage_ns["prep"] += t1 - t0
+            self.stats.requests += total
+            self.stats.batches += m
+            self.stats.rounds += rounds
+            staged = None
+            if total:
+                # only the m consumed windows launch, padded to pow2(m)
+                staged = self._dispatch_slot(st, 0, m, now_ms, m > 1)
+                self.stats.stage_ns["device"] += time.perf_counter_ns() - t1
+        return (metas, failed, staged)
+
+    def collect_columnar_windows(self, handle, outs):
+        """Wait for a launched columnar group's response (outside the engine
+        lock: launch order is already fixed) and scatter each window's rows
+        into the caller's column buffers. `outs` is one (status, limit,
+        remaining, reset) array 4-tuple per CONSUMED window, each sized to
+        that window's item count. Returns the per-window leftover index
+        arrays: at most the LAST consumed window's is non-empty (the
+        group-cut barrier)."""
+        metas, _failed, staged = handle
+        t0 = time.perf_counter_ns()
+        rows_all = WindowStaging.fetch(staged) if staged is not None else None
+        t1 = time.perf_counter_ns()
+        scanned = staged is not None and staged[3]
+        over = 0
+        leftovers = []
+        for k, ((n0, lane_item, leftover), out) in enumerate(zip(metas, outs)):
+            if n0:
+                rows = rows_all[k] if scanned else rows_all
+                st, li, re, rs = out
+                st[lane_item] = rows[0, :n0]
+                li[lane_item] = rows[1, :n0]
+                re[lane_item] = rows[2, :n0]
+                rs[lane_item] = rows[3, :n0]
+                over += int(np.count_nonzero(rows[0, :n0] == 1))
+            leftovers.append(leftover)
+        t2 = time.perf_counter_ns()
+        with self._lock:  # concurrent completers: counters stay exact
+            self.stats.over_limit += over
+            self.stats.stage_ns["device"] += t1 - t0
+            self.stats.stage_ns["demux"] += t2 - t1
+        return leftovers
 
     # --------------------------------------------- native lone-request path
 

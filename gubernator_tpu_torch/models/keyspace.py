@@ -8,8 +8,10 @@ key's state — the same accepted tradeoff as the reference's LRU eviction and
 restart behavior (reference: architecture.md:5-11).
 
 A copy of the JAX package's pure-Python directory (models/keyspace.py
-there), so both engines assign the same slots to the same key stream. The
-JAX package's C++ directory (native/keydir.cpp) has no counterpart here yet.
+there), so both engines assign the same slots to the same key stream. It
+serves only under GUBER_NO_NATIVE=1: the engine's directory is otherwise
+the C++ one, native/keydir.cpp, a byte-for-byte copy of the JAX package's
+(bound in native/__init__.py).
 """
 
 from __future__ import annotations

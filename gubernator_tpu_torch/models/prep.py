@@ -50,6 +50,27 @@ def bucket_pow2(n: int) -> int:
     return k
 
 
+def bucket_splits(n: int, lo: int, hi: int) -> List[int]:
+    """Sub-window item counts for an n-item columnar chunk.
+
+    Chunks wider than one engine window (n > hi) must split. Every piece
+    but the last is the largest pow2 bucket width ≤ hi, so each sub-window,
+    and every scan stack built over them, keeps to the shapes the engine
+    warms (a capacity-capped engine, hi not a power of two, never mints its
+    capped terminal width per piece); the remainder rides as one final
+    piece (bucket_width pads it)."""
+    cap = lo
+    while cap * 2 <= hi:
+        cap *= 2
+    out = []
+    while n > cap:
+        out.append(cap)
+        n -= cap
+    if n:
+        out.append(n)
+    return out
+
+
 def preprocess(
     requests: Sequence[RateLimitReq], now_ms: int
 ) -> Tuple[List[Optional[RateLimitResp]], List[List[WorkItem]], int]:

@@ -9,6 +9,8 @@ a full table included. This module binds the parts the engine uses:
 - prep_pack_fast: the one-pass window prep (validate, first-occurrence
   round split, directory lookup and pack of the wide staging rows in one C
   call over the request objects);
+- prep_pack_columnar: the same pass over the peerlink wire columns, with
+  the GIL released;
 - make_key_directory: the engine's factory.
 
 The library is built by g++ at first use into _build/ (ops/_build.py). The
@@ -76,6 +78,13 @@ def load_library() -> ctypes.CDLL:
         lib.keydir_size.argtypes = [c.c_void_p]
         lib.keydir_evictions.restype = c.c_int64
         lib.keydir_evictions.argtypes = [c.c_void_p]
+        lib.keydir_prep_pack_columnar.restype = c.c_int32
+        lib.keydir_prep_pack_columnar.argtypes = [
+            c.c_void_p, c.c_int32, c.c_char_p, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_int64, c.c_void_p, c.c_int32, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p, c.c_void_p,
+        ]
         _LIB = lib
         return lib
 
@@ -149,6 +158,47 @@ def prep_pack_fast(directory: "NativeKeyDirectory", requests,
     n_inj = np.zeros(1, np.int32)
     n0 = lib.keydir_prep_pack_fast(
         directory._kd, requests, packed.ctypes.data, width, greg_mask,
+        lane_item.ctypes.data, leftover.ctypes.data, n_left.ctypes.data,
+        inject.ctypes.data, n_inj.ctypes.data,
+    )
+    if n0 < 0:
+        return n0, None, None, inject[:int(n_inj[0])]
+    return (n0, lane_item[:n0], leftover[:int(n_left[0])],
+            inject[:int(n_inj[0])])
+
+
+def prep_pack_columnar(directory: "NativeKeyDirectory", n: int,
+                       keys, key_off, name_len, hits, limit, duration,
+                       algorithm, behavior, slow_mask: int,
+                       packed: np.ndarray, inject: Optional[np.ndarray] = None):
+    """Columnar one-pass window prep: the peerlink wire columns straight
+    into the wide staging rows, no RateLimitReq objects. The C pass runs
+    without the GIL (the CDLL releases it around the call).
+
+    `keys` is the name+unique_key byte arena (bytes or a ctypes buffer);
+    key_off i32[>= n+1]; name_len, algorithm, behavior i32[n]; hits, limit,
+    duration i64[n]; `packed` a zeroed C-contiguous i64[9, width]; lanes
+    whose behavior has a bit of `slow_mask` come back as leftover. `inject`
+    is prep_pack_fast's: the caller's i64[R, 8] with R >= min(n, width),
+    or None for a new array.
+
+    Returns (n0, lane_item, leftover, inject) like prep_pack_fast."""
+    if (packed.dtype != np.int64 or packed.ndim != 2 or packed.shape[0] != 9
+            or not packed.flags.c_contiguous):
+        raise ValueError(f"packed must be a C-contiguous i64[9, width], got "
+                         f"{packed.dtype}{packed.shape}")
+    lib = load_library()
+    width = packed.shape[1]
+    lane_item = np.empty(width, np.int32)
+    leftover = np.empty(n, np.int32)
+    n_left = np.zeros(1, np.int32)
+    inject = _inject_out(inject, min(n, width))  # C writes none past `width` lanes
+    n_inj = np.zeros(1, np.int32)
+    n0 = lib.keydir_prep_pack_columnar(
+        directory._kd, n, keys,
+        key_off.ctypes.data, name_len.ctypes.data, hits.ctypes.data,
+        limit.ctypes.data, duration.ctypes.data, algorithm.ctypes.data,
+        behavior.ctypes.data, slow_mask, packed.ctypes.data, width,
         lane_item.ctypes.data, leftover.ctypes.data, n_left.ctypes.data,
         inject.ctypes.data, n_inj.ctypes.data,
     )

@@ -1,0 +1,422 @@
+"""lockdep-style runtime lock-order witness (layer 2 of the lockmap).
+
+The repo's concurrency grew past what lexical lint can see: the engine
+lock has five call sites, peerlink holds per-connection write locks,
+reshard transfer sessions nest a condition inside the engine path, and
+scenario-runner side threads kill peers mid-stream. The static pass
+(`analysis/lockmap.py`) proves the *declared* acquisition order is
+acyclic; this module proves the *actual* order at runtime matches it.
+
+One lock identity model is shared by both layers: every load-bearing
+lock is constructed through the factories below with a canonical class
+name (`make_lock("engine")`, `make_condition("combiner.window")`).
+The static analyzer harvests those same name literals from the
+construction sites, so the graph the analyzer emits and the graph the
+witness checks speak identical node names.
+
+Witness semantics (per thread):
+
+- each acquisition pushes (class, instance, stack) onto a thread-local
+  held list; re-entrant acquisition of the SAME instance (RLocks) adds
+  no edges;
+- acquiring class B while holding class A records edge A->B for every
+  distinct held class A;
+- an edge whose REVERSE is committed in lockmap.json is an order
+  inversion: the witness raises `WitnessInversion` carrying both
+  acquisition stacks *before* blocking on the lock, so the test fails
+  loudly instead of deadlocking quietly;
+- an edge committed in neither direction is recorded as *unknown*; the
+  tier-1 conftest fails the session when unknown edges remain, which is
+  the runtime half of the lockmap.json two-direction drift pin
+  (`make lockmap` pins the static half).
+
+GUBER_LOCK_WITNESS=0 (the production default) makes every factory
+return the plain `threading` primitive — bit-identical serving, proven
+by the differential test in tests/test_witness.py and registered in the
+hatch table (analysis/rules/hatches.py). The tier-1 conftest turns the
+witness on for the whole suite.
+
+GUBER_LOCK_WITNESS_DUMP=<dir> additionally writes this process's
+observed edges to <dir>/witness-torch-<pid>.json at exit, so the cluster
+tests' subprocess daemons feed the same session-end gate as the pytest
+process itself.
+"""
+
+from __future__ import annotations
+
+import atexit
+import json
+import linecache
+import os
+import sys
+import threading
+from typing import Dict, List, Optional, Set, Tuple
+
+__all__ = [
+    "witness_enabled",
+    "make_lock",
+    "make_rlock",
+    "make_condition",
+    "the_witness",
+    "Witness",
+    "WitnessInversion",
+]
+
+_STACK_LIMIT = 12  # frames kept per report-side acquisition stack
+
+
+def witness_enabled() -> bool:
+    """GUBER_LOCK_WITNESS escape hatch (default OFF: the witness is a
+    test-rig instrument; production locks must stay plain primitives)."""
+    raw = os.environ.get("GUBER_LOCK_WITNESS", "").strip().lower()
+    return raw in ("1", "t", "true", "yes", "on")
+
+
+class WitnessInversion(AssertionError):
+    """Lock acquired against the committed order; carries both stacks."""
+
+    def __init__(self, message: str, held_stack: str, acquire_stack: str):
+        super().__init__(message)
+        self.held_stack = held_stack
+        self.acquire_stack = acquire_stack
+
+
+def _grab_stack(limit: int = _STACK_LIMIT) -> List[Tuple[str, int, str]]:
+    """Raw (file, line, func) frames for the REPORT side — only walked
+    when an inversion or a first-sighting unknown edge fires, never on
+    the per-acquisition hot path (that uses `_acq_site`). The witness's
+    own wrapper frames (acquire/__enter__) are skipped so every kept
+    frame is the caller's code."""
+    frames: List[Tuple[str, int, str]] = []
+    f = sys._getframe(2)  # skip _grab_stack + the witness method
+    while f is not None and len(frames) < limit:
+        code = f.f_code
+        if code.co_filename != _OWN_FILE:
+            frames.append((code.co_filename, f.f_lineno, code.co_name))
+        f = f.f_back
+    return frames
+
+
+# exact co_filename this module's code objects carry (matching abspath
+# would break under relative-path imports)
+_OWN_FILE = _grab_stack.__code__.co_filename
+
+
+def _acq_site() -> List[Tuple[str, int, str]]:
+    """Single-frame acquisition site, stamped on EVERY acquisition (the
+    hot path — bench.py `lock_witness` gates its cost). One frame is
+    what lockdep itself keeps per held lock; the full report-side stack
+    (`_grab_stack`) is only captured when an edge actually misbehaves."""
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_filename == _OWN_FILE:
+        f = f.f_back
+    if f is None:
+        return []
+    code = f.f_code
+    return [(code.co_filename, f.f_lineno, code.co_name)]
+
+
+def _render_stack(frames: List[Tuple[str, int, str]]) -> str:
+    out = []
+    for path, line, func in frames:
+        out.append(f'  File "{path}", line {line}, in {func}\n')
+        text = linecache.getline(path, line).strip()
+        if text:
+            out.append(f"    {text}\n")
+    return "".join(out)
+
+
+class _Held:
+    __slots__ = ("name", "lock_id", "count", "stack")
+
+    def __init__(self, name: str, lock_id: int,
+                 stack: List[Tuple[str, int, str]]):
+        self.name = name
+        self.lock_id = lock_id
+        self.count = 1
+        self.stack = stack
+
+
+class Witness:
+    """Process-global order checker. `order` is the committed edge set
+    from lockmap.json; tests may construct their own Witness with an
+    explicit edge set (see tests/test_witness.py)."""
+
+    def __init__(self, order: Optional[Set[Tuple[str, str]]] = None):
+        self._mu = threading.Lock()
+        self._tls = threading.local()
+        self.order: Set[Tuple[str, str]] = (
+            set(order) if order is not None else _committed_order())
+        # (src, dst) -> first-sighting provenance for edges outside the
+        # committed set; the session-end gate reports these
+        self.unknown: Dict[Tuple[str, str], Dict[str, str]] = {}
+        # committed edges actually exercised this process (coverage)
+        self.observed: Set[Tuple[str, str]] = set()
+        self.inversions: List[Dict[str, str]] = []
+
+    # ------------------------------------------------------ thread state
+
+    def _held(self) -> List[_Held]:
+        h = getattr(self._tls, "held", None)
+        if h is None:
+            h = self._tls.held = []
+        return h
+
+    # ------------------------------------------------------- acquisition
+
+    def before_acquire(self, name: str, lock_id: int,
+                       held: Optional[List[_Held]] = None) -> bool:
+        """Order-check an impending acquisition. Returns True when this
+        is a re-entrant acquire of an already-held instance (no edges,
+        no push). Raises WitnessInversion BEFORE the caller blocks.
+        The wrapper passes its pre-fetched `held` list so the hot path
+        touches thread-local storage exactly once per acquisition."""
+        if held is None:
+            held = self._held()
+        for ent in held:
+            if ent.lock_id == lock_id:
+                ent.count += 1
+                return True
+        if not held:
+            return False
+        seen: Set[str] = set()
+        for ent in held:
+            if ent.name in seen:
+                continue
+            seen.add(ent.name)
+            # same-class different-instance nesting yields the self-edge
+            # (name, name); it can never invert, but it must be committed
+            # in lockmap.json like any other edge
+            edge = (ent.name, name)
+            if edge in self.order:
+                self.observed.add(edge)
+                continue
+            if (name, ent.name) in self.order:
+                held_s = _render_stack(ent.stack)
+                acq_s = _render_stack(_grab_stack())
+                msg = (
+                    f"lock-order inversion: acquiring `{name}` while "
+                    f"holding `{ent.name}`, but the committed lockmap "
+                    f"orders `{name}` -> `{ent.name}`.\n"
+                    f"--- stack holding `{ent.name}`:\n{held_s}"
+                    f"--- stack acquiring `{name}`:\n{acq_s}")
+                with self._mu:
+                    self.inversions.append({
+                        "src": ent.name, "dst": name,
+                        "held_stack": held_s, "acquire_stack": acq_s,
+                    })
+                raise WitnessInversion(msg, held_s, acq_s)
+            if edge not in self.unknown:  # racy pre-check: capture cost
+                with self._mu:  # only on first sighting, setdefault wins
+                    self.unknown.setdefault(edge, {
+                        "held_stack": _render_stack(ent.stack),
+                        "acquire_stack": _render_stack(_grab_stack()),
+                    })
+        return False
+
+    def did_acquire(self, name: str, lock_id: int) -> None:
+        self._held().append(_Held(name, lock_id, _acq_site()))
+
+    def release(self, lock_id: int) -> None:
+        held = self._held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i].lock_id == lock_id:
+                held[i].count -= 1
+                if held[i].count == 0:
+                    del held[i]
+                return
+
+    # ------------------------------------------------- RLock save/restore
+
+    def release_all(self, lock_id: int) -> int:
+        """Condition.wait() fully releases an RLock; pop the whole entry
+        and hand back the recursion count for _acquire_restore."""
+        held = self._held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i].lock_id == lock_id:
+                count = held[i].count
+                del held[i]
+                return count
+        return 1
+
+    def restore(self, name: str, lock_id: int, count: int) -> None:
+        ent = _Held(name, lock_id, _acq_site())
+        ent.count = count
+        self._held().append(ent)
+
+    # ---------------------------------------------------------- reporting
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {
+                "observed": sorted(list(e) for e in self.observed),
+                "unknown": [
+                    {"src": s, "dst": d, **prov}
+                    for (s, d), prov in sorted(self.unknown.items())
+                ],
+                "inversions": list(self.inversions),
+            }
+
+    def reset_for_tests(self) -> None:
+        with self._mu:
+            self.unknown.clear()
+            self.observed.clear()
+            self.inversions.clear()
+
+
+def _repo_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+
+def _committed_order() -> Set[Tuple[str, str]]:
+    """The committed acquisition-order edges: lockmap.json's static
+    edges plus its runtime-observed extras (one union graph — see
+    docs/static-analysis.md 'Reading a lockmap')."""
+    path = os.path.join(_repo_root(), "lockmap.json")
+    try:
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return set()
+    edges: Set[Tuple[str, str]] = set()
+    for e in data.get("static_edges", []):
+        edges.add((e[0], e[1]))
+    for e in data.get("runtime_edges", []):
+        edges.add((e["src"], e["dst"]))
+    return edges
+
+
+_WITNESS: Optional[Witness] = None
+_WITNESS_MU = threading.Lock()
+
+
+def the_witness() -> Witness:
+    global _WITNESS
+    if _WITNESS is None:
+        with _WITNESS_MU:
+            if _WITNESS is None:
+                w = Witness()
+                _maybe_arm_dump(w)
+                _WITNESS = w
+    return _WITNESS
+
+
+def _maybe_arm_dump(w: Witness) -> None:
+    # dev-only dump knob, read before configuration exists so subprocess
+    # daemons inherit it from the test session
+    # guberlint: disable=knob-drift -- GUBER_LOCK_WITNESS_DUMP is a test-rig dump path set by tests/conftest.py, not operator surface
+    dump_dir = os.environ.get("GUBER_LOCK_WITNESS_DUMP", "").strip()
+    if not dump_dir:
+        return
+
+    def _dump():
+        try:
+            os.makedirs(dump_dir, exist_ok=True)
+            path = os.path.join(dump_dir, f"witness-torch-{os.getpid()}.json")
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(w.snapshot(), f, indent=1, sort_keys=True)
+        except OSError:
+            pass  # a failed dump must not turn process exit into a crash
+
+    atexit.register(_dump)
+
+
+# ------------------------------------------------------------- wrappers
+
+
+class _WitnessLock:
+    """threading.Lock with witness bookkeeping. Only ever constructed
+    when the witness is enabled; the off path hands out the bare
+    primitive (bit-identical, differential-tested)."""
+
+    __slots__ = ("_inner", "_name", "_w")
+
+    def __init__(self, name: str, inner, w: Witness):
+        self._inner = inner
+        self._name = name
+        self._w = w
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        w = self._w
+        held = w._held()
+        reentrant = w.before_acquire(self._name, id(self), held)
+        got = self._inner.acquire(blocking, timeout)
+        if not got and reentrant:
+            # failed re-entrant acquire (plain Lock timeout): undo count
+            w.release(id(self))
+        elif got and not reentrant:
+            held.append(_Held(self._name, id(self), _acq_site()))
+        return got
+
+    def release(self) -> None:
+        self._inner.release()
+        self._w.release(id(self))
+
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def __repr__(self) -> str:
+        return f"<WitnessLock {self._name!r} {self._inner!r}>"
+
+
+class _WitnessRLock(_WitnessLock):
+    """RLock variant: also implements the Condition save/restore hooks
+    so `Condition(make_rlock(...)).wait()` keeps the held-set honest."""
+
+    __slots__ = ()
+
+    def _is_owned(self) -> bool:
+        return self._inner._is_owned()
+
+    def _release_save(self):
+        state = self._inner._release_save()
+        count = self._w.release_all(id(self))
+        return (state, count)
+
+    def _acquire_restore(self, saved) -> None:
+        state, count = saved
+        self._inner._acquire_restore(state)
+        self._w.restore(self._name, id(self), count)
+
+    def __repr__(self) -> str:
+        return f"<WitnessRLock {self._name!r} {self._inner!r}>"
+
+
+# ------------------------------------------------------------ factories
+
+
+def make_lock(name: str):
+    """A canonical lock: plain threading.Lock when the witness is off
+    (the production default), a witness-checked wrapper when on. `name`
+    is the lock CLASS — all instances share it, and the static analyzer
+    reads this same literal from the construction site."""
+    if not witness_enabled():
+        return threading.Lock()
+    return _WitnessLock(name, threading.Lock(), the_witness())
+
+
+def make_rlock(name: str):
+    if not witness_enabled():
+        return threading.RLock()
+    return _WitnessRLock(name, threading.RLock(), the_witness())
+
+
+def make_condition(name: str, lock=None):
+    """A canonical condition variable. With no `lock` the underlying
+    lock is an RLock (exactly threading.Condition's default); pass an
+    already-wrapped lock to share one canonical lock between a mutex
+    and its condition (the reshard session pattern)."""
+    if lock is not None:
+        return threading.Condition(lock)
+    if not witness_enabled():
+        return threading.Condition()
+    return threading.Condition(
+        _WitnessRLock(name, threading.RLock(), the_witness()))

@@ -24,9 +24,10 @@ stage a window identically.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from types import SimpleNamespace
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,11 +62,14 @@ TABLE_ROW_FIELDS = 8
 launch_counts: Dict[str, int] = {
     f"decide_{form}{fmt}": 0 for form in ("", "scan_")
     for fmt in ("wide", "compact", "lean")}
+# The same launches by (launch_counts key, K, B): K = 1 for one window.
+launch_shapes: Dict[Tuple[str, int, int], int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    launch_shapes.clear()
 
 
 class ReqBatch(NamedTuple):
@@ -379,6 +383,7 @@ def _load() -> SimpleNamespace:
         k = _launch.load("decide", {
             "decide_launch": (I, I, V, LL, V, V, V, I, I, LL, I, V, V),
             "decide_tune": (I, I),
+            "decide_scan_chunk": (I, I, I, I, V),
         })
         k.scratch_words = k.lib.decide_scratch_words()
         _kernels = k
@@ -421,8 +426,23 @@ def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
         index, fmt, state.data_ptr(), C, packed.data_ptr(),
         cfg.data_ptr() if fmt == LEAN else None, out.data_ptr(), K, B, int(now_ms),
         int(scan), scratch.data_ptr(), k.stream(index)), "decide")
-    launch_counts[_COUNT_NAMES[fmt, scan]] += 1
+    name = _COUNT_NAMES[fmt, scan]
+    launch_counts[name] += 1
+    shape_key = (name, K, B)
+    launch_shapes[shape_key] = launch_shapes.get(shape_key, 0) + 1
     return out
+
+
+def scan_chunk(index: int, fmt: int, K: int, B: int) -> int:
+    """The windows a chunk of csrc/decide.cu's scan kernel takes for a scan
+    of K windows of B lanes in format `fmt` on card `index`, by the rule
+    decide_launch applies; 0 when the scan runs one launch a window
+    instead. Launches nothing."""
+    k = _kernels or _load()
+    kc = ctypes.c_int(0)
+    _launch.raise_on(k.decide_scan_chunk(index, fmt, K, B, ctypes.byref(kc)),
+                     "decide_scan_chunk")
+    return kc.value
 
 
 def _decide(fmt, state, packed, cfg, now_ms, scan):

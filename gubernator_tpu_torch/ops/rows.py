@@ -192,6 +192,7 @@ class InjectStaging:
         self.rows_np = rows.numpy()
         self.done = done
         self._pending = False
+        self.waits = 0  # free() calls that found a launched inject to wait on
 
     @classmethod
     def allocate(cls, rows: int, device: torch.device) -> "InjectStaging":
@@ -205,6 +206,7 @@ class InjectStaging:
     def free(self) -> np.ndarray:
         """The buffer's numpy view, once no launched inject reads it."""
         if self._pending:
+            self.waits += 1
             self.done.synchronize()
             self._pending = False
         return self.rows_np

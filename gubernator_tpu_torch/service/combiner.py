@@ -1,0 +1,661 @@
+"""Pipelined flat-combining serving engine in front of the device backend.
+
+The reference serializes concurrent requests under one cache mutex and
+processes them one at a time (gubernator.go:328); each request is cheap Go.
+Here every backend call is a device kernel dispatch, so serializing callers
+would pay one dispatch *per request*. Instead, concurrent callers hand
+their requests to a combiner: while launches are in flight, all arriving
+requests pool up and the next launch applies them as batched windows. This
+is the TPU-first inversion of the reference's request micro-batching
+(peer_client.go:243-283): the batch window emerges from dispatch latency
+itself — a lone caller dispatches immediately, a thundering herd
+aggregates into dispatch-sized windows automatically.
+
+Depth-N pipelining (the bench.py serving-loop structure, productized):
+when the backend exposes the launch/collect split (models/engine.py
+launch_windows — native prep, no Store), the combiner runs THREE
+overlapped stages instead of one lock-step loop:
+
+- pack+launch (the worker thread): drains pending submissions, packs them
+  submission-granular into windows of <= max_width lanes, and launches up
+  to GUBER_PIPELINE_SCAN windows per device call WITHOUT waiting for any
+  earlier window's readback;
+- in flight: up to `depth` launches ride the link/device concurrently
+  (GUBER_PIPELINE_DEPTH; 'auto' defaults to 3 — bench.py's probe winner —
+  and autotune() re-probes it); a bounded queue applies backpressure, so
+  a stalled link degrades to today's lock-step behavior instead of
+  unbounded memory growth;
+- drain (the drainer thread): completes launches in order and resolves
+  every caller's future.
+
+Per-key sequential semantics survive pipelining because launches are
+serialized under the engine lock (host prep order == dispatch order), the
+device state chain orders the windows' effects, and leftover lanes retire
+at launch time — see models/engine.py launch_windows and the depth>1 vs
+serial bit-equality differential in tests/test_pipeline.py.
+
+Observability: every submission's enqueue->launch wait, every window's
+occupancy, and the pipeline's depth/occupancy/fill-stalls feed the daemon
+registry's combiner_* families (docs/observability.md); a traced
+submission additionally gets `combiner.wait`, `pipeline.wait`, and
+`kernel.dispatch` phase spans — the intervals a slow p99 most needs split
+apart.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue as _queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import List, Optional, Sequence
+
+from gubernator_tpu_torch.obs import witness
+from gubernator_tpu_torch.obs import trace
+from gubernator_tpu_torch.service import deadline as deadline_mod
+from gubernator_tpu_torch.types import RateLimitReq, RateLimitResp
+
+log = logging.getLogger("gubernator_tpu_torch.combiner")
+
+# 'auto' pipeline depth resolves here until autotune() (the productized
+# bench.py {1, 3, 6} probe) refines it against the live link — depth 1
+# winning degrades the combiner to the serial lock-step path.
+DEFAULT_PIPELINE_DEPTH = 3
+DEFAULT_PIPELINE_SCAN = 8
+
+
+def _env_depth(value) -> int:
+    """GUBER_PIPELINE_DEPTH resolution: 'auto'/unset -> 0 (auto), else a
+    positive int; 1 pins the serial lock-step path."""
+    if value is None:
+        value = os.environ.get("GUBER_PIPELINE_DEPTH", "auto")
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v in ("", "auto", "0"):
+            return 0
+        value = int(v)
+    if value < 0:
+        raise ValueError(f"GUBER_PIPELINE_DEPTH={value}: must be >= 0")
+    return int(value)
+
+
+def _env_scan(value) -> int:
+    """GUBER_PIPELINE_SCAN resolution: max windows coalesced into one
+    group launch (1 disables scan grouping)."""
+    if value is None:
+        value = int(os.environ.get("GUBER_PIPELINE_SCAN",
+                                   str(DEFAULT_PIPELINE_SCAN)))
+    if value < 1:
+        raise ValueError(f"GUBER_PIPELINE_SCAN={value}: must be >= 1")
+    return int(value)
+
+
+class BackendCombiner:
+    """Merges concurrent get_rate_limits calls into pipelined backend
+    launches (serial lock-step when the backend has no launch/collect
+    split, or depth == 1)."""
+
+    def __init__(self, backend, name: str = "backend-combiner",
+                 metrics=None, tracer=None, depth=None, scan=None,
+                 recorder=None):
+        self.backend = backend
+        self._metrics = metrics
+        self._tracer = tracer
+        self._recorder = recorder  # flight recorder (obs/events.py) or None
+        # cycle profiler (obs/profile.py): the combiner feeds each
+        # submission's enqueue->launch residency into the queue_wait phase
+        self._profiler = getattr(backend, "profiler", None)
+        self._cond = witness.make_condition("combiner.window")
+        # pending entry: (reqs, now_ms, future, enqueue time_ns, span|None,
+        # deadline|None)
+        self._pending: List[tuple] = []
+        self._closed = False
+        # submitted-but-unresolved request count: the combiner's share of
+        # the admission controller's pending-work reading. Incremented at
+        # submit, decremented by each future's done callback — so it spans
+        # queue wait AND in-flight device time, whatever path resolved it.
+        self._backlog = 0
+        self._backlog_lock = witness.make_lock("combiner.backlog")
+        self._deadline_shed = 0
+        # Counter state lives in the daemon's Prometheus registry when one
+        # is attached (combiner_* families); these ints are the always-on
+        # dict view the in-process harnesses and tests read.
+        self._submissions = 0
+        self._windows = 0
+        self._merged_windows = 0
+        self._pipelined_windows = 0
+        self._group_launches = 0
+        self._fill_stalls = 0
+        self._depth_auto = _env_depth(depth) == 0
+        self._depth = _env_depth(depth) or DEFAULT_PIPELINE_DEPTH
+        self._scan = _env_scan(scan)
+        self._pipelined = (
+            self._depth > 1
+            and hasattr(backend, "supports_pipeline")
+            and hasattr(backend, "launch_windows")
+            and backend.supports_pipeline()
+        )
+        if not self._pipelined:
+            self._depth = 1
+        m = self._metrics
+        if m is not None and hasattr(m, "combiner_pipeline_depth"):
+            m.combiner_pipeline_depth.set(self._depth)
+        # Backpressure: a launch is admitted only while fewer than `depth`
+        # launches are between dispatch and collect — the semaphore is
+        # acquired BEFORE launching and released by the drainer after the
+        # readback, so in-flight work is bounded exactly by depth and a
+        # stalled link degrades to lock-step. The queue itself carries the
+        # launch order to the drainer; +2 staging slots so a buffer is
+        # never rewritten while its launch may still be reading it.
+        self._slots = threading.Semaphore(self._depth)
+        self._inflight: "_queue.Queue" = _queue.Queue()
+        self._inflight_n = 0
+        self._n_lock = witness.make_lock("combiner.counters")
+        self._staging = [dict() for _ in range(self._depth + 2)]
+        self._launch_seq = 0
+        self._drainer: Optional[threading.Thread] = None
+        if self._pipelined:
+            self._drainer = threading.Thread(
+                target=self._drain, name=f"{name}-drain", daemon=True)
+            self._drainer.start()
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    @property
+    def pipelined(self) -> bool:
+        """True when the depth-N launch/collect pipeline is active."""
+        return self._pipelined
+
+    @property
+    def depth(self) -> int:
+        """Current cycles-in-flight bound (1 = serial lock-step)."""
+        return self._depth
+
+    @property
+    def backlog(self) -> int:
+        """Requests submitted and not yet resolved (queued + in flight) —
+        the admission controller's combiner term."""
+        return self._backlog
+
+    @property
+    def stats(self) -> dict:
+        """Dict view of the combiner counters (windows actually merged >1
+        submission under "merged_windows"); pipeline state rides along —
+        /v1/debug/vars serves this dict verbatim."""
+        return {
+            "submissions": self._submissions,
+            "windows": self._windows,
+            "merged_windows": self._merged_windows,
+            "pipelined_windows": self._pipelined_windows,
+            "group_launches": self._group_launches,
+            "fill_stalls": self._fill_stalls,
+            "pipeline_depth": self._depth,
+            "pipeline_inflight": self._inflight_n,
+            "backlog": self._backlog,
+            "deadline_shed": self._deadline_shed,
+        }
+
+    def autotune(self, depths=(1, 3, 6), probe_windows: int = 12) -> int:
+        """Resolve an 'auto' depth by timing no-op pipelined windows at
+        each candidate (bench.py's depth probe, productized — depth 1 IS
+        a candidate, so a host where overlap loses outright — a single
+        shared core, a stalled link — auto-degrades to the serial
+        lock-step path instead of staying pinned pipelined). Call BEFORE
+        serving traffic (daemon boot, after warmup): the probe dispatches
+        real no-op windows — all-padding lanes, the table is untouched —
+        and re-sizes the in-flight queue to the winner. No-op when the
+        pipeline is off, the depth was pinned, or the backend lacks the
+        probe hooks."""
+        be = self.backend
+        if (not self._pipelined or not self._depth_auto
+                or not hasattr(be, "launch_noop")):
+            return self._depth
+        import collections
+
+        best_d, best_t = self._depth, None
+        for d in depths:
+            inflight = collections.deque()
+            t0 = time.perf_counter()
+            for _ in range(probe_windows):
+                inflight.append(be.launch_noop())
+                if len(inflight) > d:
+                    be.collect_noop(inflight.popleft())
+            while inflight:
+                be.collect_noop(inflight.popleft())
+            dt = (time.perf_counter() - t0) / probe_windows
+            if best_t is None or dt < best_t:
+                best_d, best_t = d, dt
+        with self._cond:
+            # pre-traffic by contract: no launches hold slots, so swapping
+            # the admission semaphore (the drainer only releases the one a
+            # launch acquired, via the handle tuple) is race-free
+            self._depth = best_d
+            if best_d <= 1:
+                # overlap loses on this host: degrade to the serial
+                # lock-step path entirely (the drainer idles until close()
+                # joins it via the worker's sentinel)
+                self._depth = 1
+                self._pipelined = False
+            else:
+                self._slots = threading.Semaphore(best_d)
+                self._staging = [dict() for _ in range(best_d + 2)]
+        m = self._metrics
+        if m is not None and hasattr(m, "combiner_pipeline_depth"):
+            m.combiner_pipeline_depth.set(best_d)
+        log.info("pipeline depth auto-probe picked %d (%.2f ms/window)",
+                 best_d, (best_t or 0) * 1e3)
+        return best_d
+
+    def set_depth(self, depth: int) -> int:
+        """Runtime depth re-tune (service/autopilot.py pipeline
+        controller). Only honored while the pipeline is active AND the
+        depth was env 'auto' — a pinned depth is operator intent the
+        autopilot must not override. Safe with launches in flight:
+        every launch carries the semaphore it acquired inside its
+        handle tuple and the drainer releases THAT object, so swapping
+        self._slots/_staging here never double-frees a slot; the
+        in-flight bound is transiently old-depth + new-depth, and the
+        fresh staging dicts can never alias buffers still draining."""
+        d = max(1, int(depth))
+        if not self._pipelined or not self._depth_auto:
+            return self._depth
+        with self._cond:
+            if d == self._depth:
+                return d
+            self._depth = d
+            self._slots = threading.Semaphore(d)
+            self._staging = [dict() for _ in range(d + 2)]
+            self._cond.notify()
+        m = self._metrics
+        if m is not None and hasattr(m, "combiner_pipeline_depth"):
+            m.combiner_pipeline_depth.set(d)
+        log.info("pipeline depth re-tuned to %d", d)
+        return d
+
+    def submit(
+        self, reqs: Sequence[RateLimitReq], now_ms: Optional[int] = None
+    ) -> List[RateLimitResp]:
+        """Block until this submission's responses are ready."""
+        fut = self.submit_async(reqs, now_ms)
+        return fut.result()
+
+    def submit_async(
+        self, reqs: Sequence[RateLimitReq], now_ms: Optional[int] = None
+    ) -> "Future[List[RateLimitResp]]":
+        """Enqueue one submission and return its Future — the pipelined
+        serving loop's admission point (submit() is .result() on it).
+        Single-threaded callers can keep the pipeline full this way."""
+        fut: "Future[List[RateLimitResp]]" = Future()
+        if not reqs:
+            fut.set_result([])
+            return fut
+        span = trace.current()  # None on every untraced request
+        dl = deadline_mod.current()  # None on every unbudgeted request
+        n = len(reqs)
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("combiner is closed")
+            with self._backlog_lock:
+                self._backlog += n
+            fut.add_done_callback(lambda _f: self._shrink_backlog(n))
+            self._pending.append(
+                (list(reqs), now_ms, fut, time.time_ns(), span, dl))
+            self._submissions += 1
+            self._cond.notify()
+        m = self._metrics
+        if m is not None:
+            m.combiner_submissions.inc()
+        return fut
+
+    def close(self, timeout_s: float = 30.0) -> None:
+        """Stop accepting submissions; drain what's queued AND what's in
+        flight. Anything the workers never got to (dead worker, drain
+        timeout) fails loudly instead of leaving its caller blocked
+        forever."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            self._cond.notify()
+        deadline = time.monotonic() + timeout_s
+        self._thread.join(timeout=timeout_s)
+        if self._thread.is_alive():
+            log.warning(
+                "combiner drain exceeded %.1fs; a snapshot taken now may "
+                "miss in-flight windows", timeout_s,
+            )
+        elif self._drainer is not None:
+            # worker exited cleanly: it pushed the drain sentinel, so the
+            # drainer finishes every in-flight window then exits
+            self._drainer.join(timeout=max(deadline - time.monotonic(), 0.1))
+            if self._drainer.is_alive():
+                log.warning("combiner pipeline drain exceeded %.1fs",
+                            timeout_s)
+        with self._cond:
+            orphans, self._pending = self._pending, []
+        for entry in orphans:
+            fut = entry[2]
+            if not fut.done():
+                fut.set_exception(
+                    RuntimeError("combiner closed before dispatch")
+                )
+
+    # ------------------------------------------------------------ internals
+
+    def _run(self) -> None:
+        try:
+            while True:
+                with self._cond:
+                    while not self._pending and not self._closed:
+                        self._cond.wait()
+                    if not self._pending:  # closed and drained
+                        return
+                    batch, self._pending = self._pending, []
+                try:
+                    self._execute(batch)
+                except BaseException as e:  # noqa: BLE001 — never die silently
+                    log.exception("combiner window failed")
+                    for entry in batch:
+                        fut = entry[2]
+                        if not fut.done():
+                            fut.set_exception(
+                                RuntimeError(f"combiner window failed: {e!r}")
+                            )
+        finally:
+            if self._drainer is not None:
+                self._inflight.put(None)  # drain sentinel: finish in-flight
+
+    def _shrink_backlog(self, n: int) -> None:
+        with self._backlog_lock:
+            self._backlog -= n
+
+    def _shed_expired(self, batch: List[tuple]) -> List[tuple]:
+        """Dequeue-time deadline enforcement: a submission whose budget
+        died waiting in the queue is answered DEADLINE_EXCEEDED here,
+        before it can occupy a device window — under overload the queue
+        wait IS where budgets die, and dispatching dead work would push
+        every live request behind it past its own deadline too."""
+        live = batch
+        for entry in batch:
+            dl = entry[5]
+            if dl is None or not dl.expired():
+                continue
+            if live is batch:  # copy lazily: expiry is the rare path
+                live = [e for e in batch if e is not entry]
+            else:
+                live.remove(entry)
+            fut = entry[2]
+            if not fut.done():
+                fut.set_exception(deadline_mod.DeadlineExceededError(
+                    f"request budget ({dl.budget_ms:.0f} ms) expired in "
+                    f"the combiner queue"))
+            self._deadline_shed += 1
+            if self._metrics is not None:
+                self._metrics.deadline_expired.labels(
+                    stage=deadline_mod.STAGE_QUEUE).inc()
+        return live
+
+    def _execute(self, batch: List[tuple]) -> None:
+        batch = self._shed_expired(batch)
+        # group by explicit timestamp: tests pin now_ms; production passes
+        # None, which resolves at launch — exactly the reference's behavior
+        # of stamping at processing, not arrival
+        groups: dict = {}
+        for entry in batch:
+            groups.setdefault(entry[1], []).append(entry)
+        for now_ms, entries in groups.items():
+            if self._pipelined:
+                self._execute_pipelined(now_ms, entries)
+            else:
+                self._execute_serial(now_ms, entries)
+
+    # ------------------------------------------------- serial (lock-step)
+
+    def _execute_serial(self, now_ms, entries) -> None:
+        m = self._metrics
+        tracer = self._tracer
+        prof = self._profiler
+        self._windows += 1
+        merged = len(entries) > 1
+        if merged:
+            self._merged_windows += 1
+        t_launch = time.time_ns()
+        flat: List[RateLimitReq] = []
+        spans = []
+        for reqs, _, fut, t_enq, req_span, _dl in entries:
+            spans.append((len(flat), len(reqs), fut))
+            flat.extend(reqs)
+            if prof is not None:
+                prof.observe("queue_wait", t_launch - t_enq)
+            if m is not None:
+                m.combiner_wait_ms.observe((t_launch - t_enq) / 1e6)
+            if req_span is not None and tracer is not None:
+                tracer.record_span(
+                    "combiner.wait", req_span, t_enq, t_launch,
+                    {"merged_submissions": len(entries)})
+        if m is not None:
+            m.combiner_windows.inc()
+            m.combiner_window_items.observe(len(flat))
+            if merged:
+                m.combiner_merged_windows.inc()
+        try:
+            resps = self.backend.get_rate_limits(flat, now_ms=now_ms)
+            self._record_dispatch(entries, t_launch, len(flat))
+            if resps is None or len(resps) != len(flat):
+                raise RuntimeError(
+                    f"backend returned "
+                    f"{'no' if resps is None else len(resps)} responses "
+                    f"for {len(flat)} requests"
+                )
+            for start, n, fut in spans:
+                fut.set_result(resps[start:start + n])
+        except Exception as e:  # noqa: BLE001 — propagate to every caller
+            for _, _, fut in spans:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    # --------------------------------------------------- pipelined stages
+
+    def _execute_pipelined(self, now_ms, entries) -> None:
+        """Pack stage: partition one timestamp group submission-granular
+        into windows of <= max_width lanes, then launch them in scan
+        groups of <= GUBER_PIPELINE_SCAN without blocking on readbacks.
+        Oversized submissions (one submission > max_width) keep the
+        serial path — the engine's round machinery owns their splitting."""
+        max_w = getattr(self.backend, "max_width", None) or (1 << 30)
+        windows: List[List[tuple]] = []  # each: list of entries
+        cur: List[tuple] = []
+        cur_n = 0
+        for entry in entries:
+            n = len(entry[0])
+            if n > max_w:
+                # flush, then hand the oversized submission to the serial
+                # path — launch order (and so per-key order) is preserved
+                # because both paths dispatch from THIS thread in sequence
+                if cur:
+                    windows.append(cur)
+                    cur, cur_n = [], 0
+                self._flush_windows(windows, now_ms)
+                windows = []
+                self._execute_serial(now_ms, [entry])
+                continue
+            if cur_n + n > max_w:
+                windows.append(cur)
+                cur, cur_n = [], 0
+            cur.append(entry)
+            cur_n += n
+        if cur:
+            windows.append(cur)
+        self._flush_windows(windows, now_ms)
+
+    def _flush_windows(self, windows, now_ms) -> None:
+        if len(windows) > self._scan and self._recorder is not None:
+            # the scan bound cut this timestamp group into several
+            # launches — the pipeline is running at its coalescing limit
+            self._recorder.emit("combiner.group_cut",
+                                windows=len(windows), scan=self._scan)
+        for g0 in range(0, len(windows), self._scan):
+            self._launch_group(windows[g0:g0 + self._scan], now_ms)
+
+    def _launch_group(self, group, now_ms) -> None:
+        """Dispatch stage: one launch_windows call for <= scan windows;
+        on queue-full (backpressure) this blocks — the pipeline degrades
+        to lock-step instead of queueing unbounded launches."""
+        if not group:
+            return
+        m = self._metrics
+        tracer = self._tracer
+        prof = self._profiler
+        t_launch = time.time_ns()
+        win_reqs: List[List[RateLimitReq]] = []
+        for entries in group:
+            flat: List[RateLimitReq] = []
+            merged = len(entries) > 1
+            self._windows += 1
+            if merged:
+                self._merged_windows += 1
+            for reqs, _, fut, t_enq, req_span, _dl in entries:
+                if len(entries) == 1:
+                    flat = list(reqs) if not isinstance(reqs, list) else reqs
+                else:
+                    flat.extend(reqs)
+                if prof is not None:
+                    prof.observe("queue_wait", t_launch - t_enq)
+                if m is not None:
+                    m.combiner_wait_ms.observe((t_launch - t_enq) / 1e6)
+                if req_span is not None and tracer is not None:
+                    tracer.record_span(
+                        "combiner.wait", req_span, t_enq, t_launch,
+                        {"merged_submissions": len(entries)})
+            if m is not None:
+                m.combiner_windows.inc()
+                m.combiner_window_items.observe(len(flat))
+                if merged:
+                    m.combiner_merged_windows.inc()
+            win_reqs.append(flat)
+        # admission: hold an in-flight slot BEFORE launching, so at most
+        # `depth` launches sit between dispatch and readback — the
+        # backpressure that keeps a stalled link from queueing unbounded
+        # device work (tests/test_pipeline.py TestBackpressure)
+        slots = self._slots
+        if not slots.acquire(blocking=False):
+            self._fill_stalls += 1
+            if m is not None:
+                m.combiner_fill_stalls.inc()
+            if self._recorder is not None:
+                self._recorder.emit("combiner.fill_stall",
+                                    depth=self._depth,
+                                    windows=len(group))
+            slots.acquire()
+        staging = self._staging[self._launch_seq % len(self._staging)]
+        try:
+            handle = self.backend.launch_windows(
+                win_reqs, now_ms=now_ms, staging=staging)
+        except Exception as e:  # noqa: BLE001 — fail THIS group's callers
+            slots.release()
+            for entries in group:
+                for entry in entries:
+                    fut = entry[2]
+                    if not fut.done():
+                        fut.set_exception(e)
+            return
+        if handle is None:
+            # the backend can't take the group pipelined (python
+            # directory, odd shapes): lock-step fallback, same thread so
+            # dispatch order — and per-key order — is preserved
+            slots.release()
+            for entries in group:
+                self._execute_serial(now_ms, entries)
+            return
+        self._launch_seq += 1
+        self._pipelined_windows += len(group)
+        self._group_launches += 1
+        with self._n_lock:
+            self._inflight_n += 1
+            occ = self._inflight_n
+        if m is not None:
+            m.combiner_pipelined_windows.inc(len(group))
+            m.combiner_group_windows.observe(len(group))
+            m.combiner_pipeline_inflight.set(occ)
+            m.combiner_pipeline_occupancy.observe(occ)
+        self._inflight.put((handle, group, t_launch, time.time_ns(), slots))
+
+    def _drain(self) -> None:
+        """Drainer stage: complete launches in launch order, resolve every
+        caller's future. Backend errors fail the affected group's callers;
+        the drainer itself never dies."""
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            handle, group, t_launch, t_launched, slots = item
+            t_collect = time.time_ns()
+            try:
+                results = self.backend.collect_windows(handle)
+                t_done = time.time_ns()
+                self._record_pipeline_spans(
+                    group, t_launch, t_launched, t_collect, t_done)
+                for entries, resps in zip(group, results):
+                    pos = 0
+                    for reqs, _, fut, _t, _s, _d in entries:
+                        fut.set_result(resps[pos:pos + len(reqs)])
+                        pos += len(reqs)
+            except BaseException as e:  # noqa: BLE001 — never die silently
+                log.exception("pipelined combiner window failed")
+                for entries in group:
+                    for entry in entries:
+                        fut = entry[2]
+                        if not fut.done():
+                            fut.set_exception(
+                                RuntimeError(
+                                    f"combiner window failed: {e!r}"))
+            finally:
+                with self._n_lock:
+                    self._inflight_n -= 1
+                    occ = self._inflight_n
+                slots.release()  # re-admit the pack stage
+            m = self._metrics
+            if m is not None:
+                m.combiner_pipeline_inflight.set(occ)
+
+    def _record_pipeline_spans(self, group, t_launch, t_launched,
+                               t_collect, t_done) -> None:
+        """Phase spans for the traced submissions of a pipelined group:
+        `pipeline.wait` = launched -> readback start (cycles-in-flight
+        overlap), `kernel.dispatch` = launch -> readback done (the device
+        interval the submissions shared)."""
+        tracer = self._tracer
+        if tracer is None:
+            return
+        n_items = sum(len(e[0]) for entries in group for e in entries)
+        for entries in group:
+            for entry in entries:
+                req_span = entry[4]
+                if req_span is None:
+                    continue
+                tracer.record_span(
+                    "pipeline.wait", req_span, t_launched, t_collect,
+                    {"inflight": self._inflight_n})
+                tracer.record_span(
+                    "kernel.dispatch", req_span, t_launch, t_done,
+                    {"window_items": n_items})
+
+    def _record_dispatch(self, entries, t_launch: int, n_items: int) -> None:
+        """`kernel.dispatch` spans for the traced submissions of a serial
+        window: the backend call IS the device launch + readback they
+        shared."""
+        tracer = self._tracer
+        if tracer is None:
+            return
+        t_done = 0
+        for entry in entries:
+            req_span = entry[4]
+            if req_span is None:
+                continue
+            if not t_done:
+                t_done = time.time_ns()
+            tracer.record_span("kernel.dispatch", req_span, t_launch,
+                               t_done, {"window_items": n_items})

@@ -503,6 +503,29 @@ def test_cuda_decide_wrapper_counts_its_launch(monkeypatch, fmt, scan, staging, 
                          NOW, scan, out)
     assert got is out
     assert {k: v for k, v in td.launch_counts.items() if v} == {key: 1}
+    assert td.launch_shapes == {(key, 4 if scan else 1, 16): 1}
     (index, f, _t, C, _p, _c, _o, K, B, now, sc, _s, stream), = calls
     assert (index, f, C, K, B, now, sc, stream) == (0, fmt, 64, 4 if scan else 1, 16, NOW,
                                                     int(scan), 7)
+
+
+@pytest.mark.parametrize("kc", [0, 2, 32])
+def test_scan_chunk_asks_the_library(monkeypatch, kc):
+    """scan_chunk passes the card, format, K and B to decide_scan_chunk and
+    returns the windows a chunk takes (0: one launch a window); it launches
+    and counts nothing, and a refused query raises."""
+    calls = []
+
+    def query(index, fmt, K, B, out):
+        calls.append((index, fmt, K, B))
+        out._obj.value = kc
+        return 0
+
+    monkeypatch.setattr(td, "_kernels", SimpleNamespace(decide_scan_chunk=query))
+    td.reset_launch_counts()
+    assert td.scan_chunk(0, td.LEAN, 8, 8192) == kc
+    assert calls == [(0, td.LEAN, 8, 8192)]
+    assert td.launch_shapes == {} and not any(td.launch_counts.values())
+    monkeypatch.setattr(td, "_kernels", SimpleNamespace(decide_scan_chunk=lambda *a: 1))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        td.scan_chunk(0, td.WIDE, 2, 64)

@@ -387,3 +387,5 @@ def test_scan_group_injects_match_jax(monkeypatch, staging):
         assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
     _assert_same_end_state(jeng, teng)
     assert max(per_fetch) >= 5, per_fetch  # one group: five injects, one fetch
+    if staging == "reused":  # a free() after an inject waits on its event
+        assert 0 < teng._inject.waits <= sum(per_fetch) + pending[0]
