@@ -84,7 +84,24 @@ Run from the root of the repository. Phases, each fatal on failure:
    us per launch_windows and collect_windows, the combiner's stats, the
    decide launches by format, form, K and W with the scan launches by the
    path csrc/decide.cu takes (chunked or one launch a window), the slot
-   refills and inject-staging frees that had to wait.
+   refills and inject-staging frees that had to wait;
+7. persistence: the link's page-locked copy rates (1 GiB each way); a
+   binary snapshot file of 10,000,000 buckets (in the shape of
+   tests/test_snapshot_scale.py's, made from --seed, every 16th expired)
+   in a temporary directory, restored by Engine(device="cuda",
+   capacity=10_000_001).load_snapshot_slabs (every chunk's inject through
+   the pinned entry point) and by a CPU twin (tables equal); the card
+   engine's snapshot_slabs streamed into a second file (each slab one
+   copy into a page-locked buffer, timed against the slab's bytes over the
+   measured card-to-host rate), equal slab for slab to the twin's stream;
+   that file restored into a fresh card engine through Engine(loader=...),
+   rows equal at every live key. Prints restore and snapshot seconds and
+   rows/s, the file sizes and each stage. Then the Store path: phase 3's
+   first 8 windows through an engine with a MockStore (both Stores holding
+   the 100,000 hottest keys' buckets at the start) against a CPU twin with
+   its own: answers, Store contents and calls, and rows at every key
+   equal, injects and gathers launched on the card; and rows_for_keys,
+   device_hit_counts and resolve_slots at 1,000 keys against the twin.
 
 Device times come from torch.profiler, for the kernels and for each
 library call they are compared with; where the profiler gives none the
@@ -92,11 +109,10 @@ record holds null, never a host-clock time. Every line with a time ends
 with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
-3b, 4, the bench_rows loop and each run of phase 6) and read just after;
-every kernel must have launched (each decide form and format on phases 3,
-3b, 4 and 6 together),
-inject and gather on phase 3, both through their pinned entry points
-only. The last two lines are the
+3b, 4, the bench_rows loop, each run of phase 6, and phase 7's restores
+and Store path) and read just after; every kernel must have launched (each
+decide form and format on phases 3, 3b, 4, 6 and 7 together), inject and
+gather on phase 3, both through their pinned entry points only. The last two lines are the
 {"kernels": [...]} record and the contract line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -104,11 +120,16 @@ only. The last two lines are the
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime as dt
+import gc
+import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -120,6 +141,7 @@ from gubernator_tpu_torch.models.engine import Engine
 from gubernator_tpu_torch.ops import _build, _launch, decide as dk, ring as rk, rows as rowk
 from gubernator_tpu_torch.parallel import MeshPlan, make_global_sync, make_sharded_table, shard_of_key
 from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, _psum
+from gubernator_tpu_torch.store import BinarySnapshotLoader, BucketSnapshot, MockStore
 from gubernator_tpu_torch.types import Behavior, RateLimitReq
 from gubernator_tpu_torch.utils.gregorian import gregorian_duration, gregorian_expiration
 
@@ -1971,6 +1993,374 @@ def phase_pipeline(seed, dev, results):
     return launches
 
 
+# ----------------------------------------------------------------- phase 7
+
+SNAP_KEYS = 10_000_000  # buckets in phase 7a's snapshot file
+SNAP_NOW = 4_000_000_000_000  # tests/test_snapshot_scale.py's far-future epoch
+SNAP_EXPIRED_EVERY = 16  # every 16th bucket of the file expired long ago
+SNAP_FILE_ROWS = 1 << 18  # rows per chunk of the stimulus file
+STORE_WINDOWS = 8  # phase 3's windows the Store path takes: 65,536 requests
+STORE_HELD = 100_000  # the hottest keys, whose buckets the Stores hold at the start
+HOST_READ_KEYS = 1000  # keys of phase 7c's host-state reads
+LINK_BYTES = 1 << 30  # each page-locked copy the link's rates are read from
+
+
+class Timed:
+    """Host seconds spent in wrapped callables and iterators, by name."""
+
+    def __init__(self):
+        self.s, self.n, self.each = {}, {}, {}
+
+    def _add(self, name, d, keep):
+        self.s[name] = self.s.get(name, 0.0) + d
+        self.n[name] = self.n.get(name, 0) + 1
+        if keep:
+            self.each.setdefault(name, []).append(d)
+
+    def wrap(self, name, fn, keep=False):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._add(name, time.perf_counter() - t, keep)
+
+        return timed
+
+    def iterate(self, name, items):
+        """`items`, with the time each next() takes added to `name`."""
+        it = iter(items)
+        while True:
+            t = time.perf_counter()
+            try:
+                x = next(it)
+            except StopIteration:
+                self._add(name, time.perf_counter() - t, False)
+                return
+            self._add(name, time.perf_counter() - t, False)
+            yield x
+
+
+def link_rates(dev):
+    """The page-locked host <-> card copy rates in bytes/s, each the best of
+    three copies of LINK_BYTES timed with CUDA events."""
+    host = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(LINK_BYTES, dtype=torch.uint8, device=dev)
+    rates = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        best = None
+        for _ in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dst.copy_(src, non_blocking=True)
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1)
+            best = ms if best is None else min(best, ms)
+        rates[name] = LINK_BYTES / (best / 1e3)
+    del host, card
+    torch.cuda.empty_cache()
+    tlog(f"  link, page-locked, {LINK_BYTES:,} bytes a copy (best of 3, CUDA events): "
+         f"host to card {rates['h2d'] / 1e9:.3f} GB/s, card to host "
+         f"{rates['d2h'] / 1e9:.3f} GB/s")
+    return rates
+
+
+def synthetic_slabs(seed, n, chunk):
+    """n buckets in tests/test_snapshot_scale.py _synthetic's shape, made in
+    numpy from `seed`: keys ss_<i>, token or leaky, limit 1000, remaining
+    and status drawn, duration one hour, stamp SNAP_NOW - 1000, expiry
+    SNAP_NOW but every SNAP_EXPIRED_EVERY-th long ago; as (key_blob,
+    offsets, rows) chunks of `chunk` rows, the binary Loader's shape."""
+    rng = np.random.default_rng(seed + 7)
+    for a in range(0, n, chunk):
+        i = np.arange(a, min(a + chunk, n), dtype=np.int64)
+        m = len(i)
+        blob = "".join(map("ss_{}".format, range(a, a + m))).encode()
+        lens = np.full(m, 4, np.int64)  # "ss_" and the first digit
+        for p in range(1, 10):
+            lens += i >= 10 ** p
+        off = np.zeros(m + 1, np.int64)
+        np.cumsum(lens, out=off[1:])
+        rows = np.empty((m, 7), np.int64)
+        rows[:, 0] = rng.integers(0, 2, m)
+        rows[:, 1] = 1000
+        rows[:, 2] = rng.integers(4, 1001, m)
+        rows[:, 3] = 3_600_000
+        rows[:, 4] = SNAP_NOW - 1000
+        rows[:, 5] = np.where(i % SNAP_EXPIRED_EVERY == 0, 1000, SNAP_NOW)
+        rows[:, 6] = rng.random(m) < 1 / 997
+        yield blob, off, rows
+
+
+def check_row_launches(what, want_injects):
+    """The row kernels a persistence run launched: every inject through the
+    pinned entry point (the engine's inject staging), `want_injects` of
+    them when given, and no gather."""
+    launches, pinned = dict(rowk.launch_counts), dict(rowk.pinned_counts)
+    check(launches["inject_rows"] > 0 and pinned["inject_rows"] == launches["inject_rows"],
+          f"{what}: {launches['inject_rows']} inject launches, {pinned['inject_rows']} "
+          "through the pinned entry point")
+    if want_injects is not None:
+        check(launches["inject_rows"] == want_injects,
+              f"{what}: {launches['inject_rows']} inject launches for {want_injects} chunks")
+    check(launches["gather_rows"] == 0, f"{what} gathered rows")
+    return launches
+
+
+def persistence_at_scale(seed, dev, rates, tmp, results):
+    """Phase 7a: restore SNAP_KEYS buckets from a binary snapshot file on
+    the card and on the CPU (equal tables), snapshot the card engine into a
+    second file (equal, slab for slab, to the CPU twin's stream), restore
+    that file into a fresh card engine (equal rows at every live key).
+    Returns the inject launches of the two card restores."""
+    first, second = os.path.join(tmp, "stimulus.snap"), os.path.join(tmp, "card.snap")
+    t = time.perf_counter()
+    BinarySnapshotLoader(first).save_slabs(synthetic_slabs(seed, SNAP_KEYS, SNAP_FILE_ROWS))
+    gen_s = time.perf_counter() - t
+    size = os.path.getsize(first)
+    n_live = SNAP_KEYS - (SNAP_KEYS + SNAP_EXPIRED_EVERY - 1) // SNAP_EXPIRED_EVERY
+    tlog(f"  stimulus: {SNAP_KEYS:,} buckets ({SNAP_KEYS - n_live:,} expired) in a "
+        f"{size:,}-byte file, made and written in {gen_s:.2f} s")
+
+    # restore on the card
+    gpu = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    tr = Timed()
+    gpu.directory.lookup_raw = tr.wrap("lookup_raw", gpu.directory.lookup_raw)
+    gpu._apply_inject_rows = tr.wrap("inject", gpu._apply_inject_rows)
+    chunks = sum(-(-min(SNAP_FILE_ROWS, SNAP_KEYS - a) // WINDOW)
+                 for a in range(0, SNAP_KEYS, SNAP_FILE_ROWS))
+    torch.cuda.synchronize()
+    rowk.reset_launch_counts()
+    t = time.perf_counter()
+    n = gpu.load_snapshot_slabs(tr.iterate("file_read", BinarySnapshotLoader(first).load_slabs()))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    launches = check_row_launches("the card restore", chunks)
+    check(n == SNAP_KEYS and gpu.key_count() == SNAP_KEYS,
+          f"the card restore took {n} rows, {gpu.key_count()} keys")
+    rest_s = restore_s - tr.s["lookup_raw"] - tr.s["inject"] - tr.s["file_read"]
+    tlog(f"  restore on the card (load_snapshot_slabs): {restore_s:.3f} s, "
+         f"{SNAP_KEYS / restore_s:,.0f} rows/s; {chunks} chunks of <= {WINDOW} rows, "
+         f"{launches['inject_rows']} inject launches, all pinned")
+    tlog(f"  restore split: file read {tr.s['file_read']:.3f} s, lookup_raw "
+         f"{tr.s['lookup_raw']:.3f} s ({tr.s['lookup_raw'] / chunks * 1e6:.1f} us a chunk), "
+         f"inject {tr.s['inject']:.3f} s ({tr.s['inject'] / chunks * 1e6:.1f} us a chunk on "
+         f"the host clock), the rest (slicing, staging fill, lock) {rest_s:.3f} s")
+
+    # the CPU twin
+    cpu = Engine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    t = time.perf_counter()
+    cpu.load_snapshot_slabs(BinarySnapshotLoader(first).load_slabs())
+    twin_restore_s = time.perf_counter() - t
+    check(torch.equal(gpu.state.cpu(), cpu.state), "the restored tables differ")
+    tlog(f"  the card's table equals the CPU twin's ({twin_restore_s:.3f} s to restore on the CPU)")
+
+    # snapshot on the card, streamed into the second file
+    ts = Timed()
+    gpu._read_slab = ts.wrap("slab", gpu._read_slab, keep=True)
+    gpu.directory.items_raw = ts.wrap("items_raw", gpu.directory.items_raw)
+    gpu.directory.peek_slots_raw = ts.wrap("peek_slots_raw", gpu.directory.peek_slots_raw)
+    t = time.perf_counter()
+    BinarySnapshotLoader(second).save_slabs(ts.iterate("stream", gpu.snapshot_slabs()))
+    snap_s = time.perf_counter() - t
+    split = dict(ts.s)  # the checks below peek through the same wrapper
+    write_s = snap_s - split["stream"]
+    filter_s = split["stream"] - split["slab"] - split["items_raw"] - split["peek_slots_raw"]
+    S = len(gpu._slab.rows_np)
+    check(gpu._slab.reads == ts.n["slab"] > 0,
+          f"{ts.n['slab']} slab reads, {gpu._slab.reads} through the page-locked slab")
+    slab_ms = [d * 1e3 for d in ts.each["slab"]]
+    steady = slab_ms[1:] or slab_ms
+    slab_bound = 8 * rowk.ROW_FIELDS * S / rates["d2h"] * 1e3
+    # the copy alone on the device timeline: 20 slabs back to back
+    slab_dev_ms = event_ms(lambda i: gpu._slab.rows.copy_(
+        gpu.state.narrow(0, i * S % (CAPACITY - S), S), non_blocking=True), 20)
+    size2 = os.path.getsize(second)
+    tlog(f"  snapshot on the card (snapshot_slabs into save_slabs): {snap_s:.3f} s, "
+         f"{n_live / snap_s:,.0f} rows/s, a {size2:,}-byte file")
+    tlog(f"  snapshot split: items_raw {split['items_raw']:.3f} s; {ts.n['slab']} slab copies of "
+         f"{S:,} rows, {split['slab']:.3f} s ({np.mean(steady):.4f} ms a slab after the "
+         f"first on the host clock, copy and wait, {slab_ms[0]:.4f} ms the first with its "
+         f"allocation; the copy alone {slab_dev_ms:.4f} ms on the device timeline, 20 back "
+         f"to back; bound {slab_bound:.4f} ms at the measured card-to-host rate); "
+         f"peek_slots_raw "
+         f"{split['peek_slots_raw']:.3f} s; argsort, numpy filter and key gather "
+         f"{filter_s:.3f} s; file write {write_s:.3f} s")
+
+    # the CPU twin's stream equals the card's, as save_slabs wrote it
+    n_slabs = n_rows = 0
+    for twin, card in itertools.zip_longest(cpu.snapshot_slabs(),
+                                            BinarySnapshotLoader(second).load_slabs()):
+        check(twin is not None and card is not None,
+              f"the card's and the twin's snapshots differ in length at slab {n_slabs}")
+        check(bytes(twin[0]) == bytes(card[0]) and np.array_equal(twin[1], card[1])
+              and np.array_equal(twin[2], card[2]), f"snapshot slab {n_slabs} differs")
+        n_slabs += 1
+        n_rows += len(card[1]) - 1
+    check(n_rows == n_live, f"the snapshot holds {n_rows} rows, {n_live} live")
+    log(f"  the CPU twin's slab stream equals the card's: {n_slabs} slabs, {n_rows:,} rows")
+    del cpu
+
+    # re-restore the card's file into a fresh card engine
+    rowk.reset_launch_counts()
+    t = time.perf_counter()
+    gpu2 = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW,
+                  loader=BinarySnapshotLoader(second))
+    torch.cuda.synchronize()
+    rerestore_s = time.perf_counter() - t
+    again = check_row_launches("the re-restore", None)
+    blob, off, slots2 = gpu2.directory.items_raw()
+    slots1 = gpu.directory.peek_slots_raw(blob, off)
+    check(len(slots2) == n_live and bool((slots1 >= 0).all()),
+          f"the re-restored engine holds {len(slots2)} keys, "
+          f"{int((slots1 < 0).sum())} unknown to the first")
+    rows1 = gpu.state[torch.from_numpy(slots1.astype(np.int64)).to(dev)]
+    rows2 = gpu2.state[torch.from_numpy(slots2.astype(np.int64)).to(dev)]
+    check(torch.equal(rows1, rows2), "the re-restored rows differ from the first engine's")
+    tlog(f"  re-restore of the card's file (Engine(loader=...)): {rerestore_s:.3f} s with the "
+         f"table's allocation, {n_live / rerestore_s:,.0f} rows/s; rows equal at all "
+         f"{n_live:,} live keys; {again['inject_rows']} inject launches, all pinned")
+    results["persistence"] = dict(
+        keys=SNAP_KEYS, live=n_live, file_bytes=size, snapshot_bytes=size2,
+        stimulus_s=gen_s, restore_s=restore_s, restore_rows_per_s=SNAP_KEYS / restore_s,
+        restore_split_s=dict(tr.s), restore_chunks=chunks, twin_restore_s=twin_restore_s,
+        snapshot_s=snap_s, snapshot_rows_per_s=n_live / snap_s,
+        snapshot_split_s=dict(split, filter=filter_s, write=write_s),
+        slab_rows=S, slab_reads=ts.n["slab"], slab_ms=slab_ms,
+        slab_steady_ms=float(np.mean(steady)), slab_device_ms=slab_dev_ms,
+        slab_bound_ms=slab_bound,
+        rerestore_s=rerestore_s, link_bytes_per_s=rates,
+        inject_launches=launches["inject_rows"] + again["inject_rows"])
+    del gpu, gpu2, rows1, rows2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["inject_rows"] + again["inject_rows"]
+
+
+def held_buckets(seed, key_cfg):
+    """The buckets a Store holds for the STORE_HELD hottest keys of phase 3's
+    stream (Zipf rank k is key k) before 7b: drawn from `seed`, on each
+    key's own configuration, one in 50 on the other algorithm, some
+    expired."""
+    algo, limit, dur = key_cfg
+    rng = np.random.default_rng(seed + 9)
+    k = np.arange(STORE_HELD)
+    flip = rng.random(STORE_HELD) < 0.02
+    remaining = rng.integers(0, limit[k] + 1)
+    stamp = SNAP_NOW - rng.integers(0, 2 * dur[k])
+    return [BucketSnapshot(key=f"api_k{i}", algo=int(algo[i] ^ f), limit=int(limit[i]),
+                           remaining=int(r), duration=int(dur[i]), stamp=int(st),
+                           expire_at=int(st + dur[i]), status=int(r == 0))
+            for i, f, r, st in zip(k.tolist(), flip.tolist(), remaining.tolist(),
+                                   stamp.tolist())]
+
+
+def store_path(seed, dev, results):
+    """Phase 7b: phase 3's first STORE_WINDOWS windows through a card engine
+    with a MockStore and a CPU twin with its own, both holding the same
+    buckets at the start; the clock is SNAP_NOW + 50 ms a window, so the
+    rows are live for 7c's reads. Returns the engines and the launches."""
+    batches, key_cfg = request_stream(seed, STORE_WINDOWS)
+    held = held_buckets(seed, key_cfg)
+    stores = (MockStore(), MockStore())
+    for st in stores:
+        st.data.update((b.key, dataclasses.replace(b)) for b in held)
+    gpu = Engine(device=dev, capacity=CAPACITY, store=stores[0], min_width=64,
+                 max_width=WINDOW)
+    cpu = Engine(device="cpu", capacity=CAPACITY, store=stores[1], min_width=64,
+                 max_width=WINDOW)
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    gpu_s = cpu_s = 0.0
+    for i, (_keys, batch) in enumerate(batches):
+        now = SNAP_NOW + i * 50
+        t = time.perf_counter()
+        got = gpu.get_rate_limits(batch, now_ms=now)
+        gpu_s += time.perf_counter() - t
+        t = time.perf_counter()
+        want = cpu.get_rate_limits(batch, now_ms=now)
+        cpu_s += time.perf_counter() - t
+        check(resp_tuples(got) == resp_tuples(want),
+              f"Store window {i}: card and CPU engines answer differently")
+    launches = {**dk.launch_counts, **rowk.launch_counts}
+    pinned = dict(rowk.pinned_counts)
+    check(launches["inject_rows"] > 0 and pinned["inject_rows"] == launches["inject_rows"],
+          f"the Store path's injects: {launches['inject_rows']}, pinned {pinned['inject_rows']}")
+    check(launches["gather_rows"] > 0, "the Store path gathered no rows")
+    check(sum(dk.launch_counts.values()) > 0, "the Store path launched no decide")
+    check({k: dataclasses.astuple(v) for k, v in stores[0].data.items()}
+          == {k: dataclasses.astuple(v) for k, v in stores[1].data.items()},
+          "the Stores' contents differ")
+    check(stores[0].called == stores[1].called,
+          f"Store calls differ: card {stores[0].called}, CPU {stores[1].called}")
+    keys_g, rows_g = rows_by_key(gpu)
+    keys_c, rows_c = rows_by_key(cpu)
+    check(keys_g == keys_c and torch.equal(rows_g, rows_c), "the Store path's rows differ")
+    n_req = sum(len(b) for _, b in batches)
+    stage_s = {s: ns / 1e9 for s, ns in gpu.stats.stage_ns.items()}
+    tlog(f"  Store path: {n_req:,} requests in {gpu_s:.3f} s, {n_req / gpu_s:,.0f} "
+         f"decisions/s (CPU twin {n_req / cpu_s:,.0f}/s); answers, Store contents, "
+         f"Store calls {stores[0].called} and rows at all {len(keys_g):,} keys equal")
+    tlog(f"  Store path stage seconds: " + ", ".join(f"{s} {v:.3f}" for s, v in stage_s.items())
+         + f"; launches {launches} (injects all pinned, gathers on the card)")
+    results["store_path"] = dict(requests=n_req, decisions_per_s=n_req / gpu_s,
+                                 cpu_decisions_per_s=n_req / cpu_s, stage_s=stage_s,
+                                 store_calls=dict(stores[0].called), keys=len(keys_g),
+                                 launches=dict(launches))
+    return gpu, cpu, launches
+
+
+def host_reads(gpu, cpu, results):
+    """Phase 7c: rows_for_keys, device_hit_counts and resolve_slots at
+    HOST_READ_KEYS keys (a few of them absent) on 7b's engines."""
+    keys = [k for k, _ in sorted(gpu.directory.items())[:HOST_READ_KEYS - 10]]
+    keys += [f"api_absent{i}" for i in range(10)]
+    out = {}
+    t = time.perf_counter()
+    found, rows = gpu.rows_for_keys(keys)
+    out["rows_for_keys_ms"] = (time.perf_counter() - t) * 1e3
+    want_found, want_rows = cpu.rows_for_keys(keys)
+    check(found == want_found and len(found) > 0 and np.array_equal(rows, want_rows),
+          f"rows_for_keys differs ({len(found)} found on the card, {len(want_found)} on the CPU)")
+    t = time.perf_counter()
+    hits = gpu.device_hit_counts(keys)
+    out["device_hit_counts_ms"] = (time.perf_counter() - t) * 1e3
+    check(hits == cpu.device_hit_counts(keys) and len(hits) == HOST_READ_KEYS - 10,
+          "device_hit_counts differs")
+    slots = [gpu.directory.peek_slot(k) for k in keys]
+    t = time.perf_counter()
+    names = gpu.resolve_slots(slots)
+    out["resolve_slots_ms"] = (time.perf_counter() - t) * 1e3
+    check(names == cpu.resolve_slots(slots) and len(names) == HOST_READ_KEYS - 10,
+          "resolve_slots differs")
+    tlog(f"  host-state reads at {HOST_READ_KEYS} keys equal the twin's ({len(found)} live "
+         f"rows): rows_for_keys {out['rows_for_keys_ms']:.3f} ms, device_hit_counts "
+         f"{out['device_hit_counts_ms']:.3f} ms, resolve_slots {out['resolve_slots_ms']:.3f} ms")
+    results["host_reads"] = out
+
+
+def phase_persistence(seed, dev, results):
+    log(f"== phase 7: persistence at {SNAP_KEYS:,} keys on Engine(capacity={CAPACITY}): "
+        "binary restore, streamed snapshot and re-restore against a CPU twin; the Store "
+        f"path on {STORE_WINDOWS} windows of phase 3's stream; the host-state reads")
+    t0 = time.perf_counter()
+    rates = link_rates(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        restore_injects = persistence_at_scale(seed, dev, rates, tmp, results)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gpu, cpu, launches = store_path(seed, dev, results)
+    host_reads(gpu, cpu, results)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["inject_rows"] += restore_injects
+    tlog(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2014,6 +2404,7 @@ def main(argv=None) -> int:
     glob_launches, ring_main = phase_global(args.seed, dev, results)
     row_errs, row_recs, bump_launches = phase_rows(args.seed, dev, results)
     pipe_launches = phase_pipeline(args.seed, dev, results)
+    persist_launches = phase_persistence(args.seed, dev, results)
 
     kernels = []
     for name in dk.launch_counts:
@@ -2022,7 +2413,8 @@ def main(argv=None) -> int:
                           if r["kernel"] == name and r["kind"] == "windows"
                           and r["width"] == (64 if scan else WINDOW)
                           and r["scan_k"] == (32 if scan else 0))
-        n = eng_launches[name] + py_launches[name] + glob_launches[name] + pipe_launches[name]
+        n = (eng_launches[name] + py_launches[name] + glob_launches[name]
+             + pipe_launches[name] + persist_launches[name])
         check(n > 0, f"{name} was never launched on the main path")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -2041,7 +2433,8 @@ def main(argv=None) -> int:
         library_device_ms=ring_main["library_device_ms"], call_ms=ring_main["call_ms"],
         shape=f"S={GLOBAL_SHARDS}, L={ring_main['L']}"))
     for name in ("inject_rows", "gather_rows", "row_bump"):
-        n = bump_launches if name == "row_bump" else eng_launches[name] + pipe_launches[name]
+        n = (bump_launches if name == "row_bump"
+             else eng_launches[name] + pipe_launches[name] + persist_launches[name])
         check(n > 0, f"{name} was never launched on its main path")
         r = next(r for r in row_recs if r["kernel"] == name
                  and r["m"] == ROW_MAIN_M.get(name, r["m"])

@@ -17,7 +17,11 @@ its request-object path. The engine owns:
 - the scan tail: the short trailing rounds run up to 32 windows per launch;
 - the lone-request path: a key's row mirrored in the native directory
   answers single requests in C, and the next window that looks the key up
-  injects the mirror's row back into the table first.
+  injects the mirror's row back into the table first;
+- persistence (store.py): a Store read through before and written through
+  after every window, a Loader restored at construction and saved by
+  close(), and the streamed binary snapshot (snapshot_slabs), read from the
+  table one slab of rows at a time.
 
 On CUDA every window is one host-to-device copy of its staging, one launch
 of csrc/decide.cu and one copy of the response back. get_rate_limits waits
@@ -33,13 +37,18 @@ after the last inject that reads it has run (an event per inject), since a
 scan group may look up, and inject, many windows before its one wait.
 seed_mirror's one-slot gather reads its slot from, and writes its row to,
 two page-locked host buffers the engine allocates once: no copy either way,
-one wait on the stream. On the CPU the same path runs the plain PyTorch versions. The engine
-is thread-safe through one lock, which launches hold and collects take only
-to add up their counters.
+one wait on the stream. A restore writes each chunk's rows into the same
+inject staging; a snapshot copies each slab of rows into a page-locked
+buffer allocated at the first snapshot (ops/rows.py SlabStaging) and waits
+on that buffer's event. On the CPU the same path runs the plain PyTorch
+versions. The engine is thread-safe through one lock, which launches hold
+and collects take only to add up their counters; a restore or a snapshot
+takes it per chunk or slab, never across a yield.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -71,11 +80,13 @@ from gubernator_tpu_torch.ops.decide import (
 from gubernator_tpu_torch.ops.rows import (
     GATHER_FIELDS,
     InjectStaging,
+    SlabStaging,
     gather_rows,
     inject_rows,
     sync_stream,
 )
 from gubernator_tpu_torch.ops.staging import WindowStaging
+from gubernator_tpu_torch.store import BucketSnapshot, Loader, Store
 from gubernator_tpu_torch.types import (
     SLOW_PATH_BEHAVIOR_MASK as _NATIVE_SINGLE_SLOW_MASK,
     Behavior,
@@ -110,10 +121,11 @@ class EngineStats:
     package's EngineStats keeps them.
 
     The stage clocks (nanoseconds) split a window's host path: validate and
-    round split (`prep`), key-directory resolution (`lookup`), Store I/O
-    (`store`, always 0: the port has no Store yet), staging-buffer fill
-    (`pack`), kernel dispatch and readback (`device`) and response demux
-    (`demux`). Lock waits are left out."""
+    round split (`prep`), key-directory resolution (`lookup`), Store
+    read-through and write-through (`store`: the rows' gathers, the Store's
+    calls and the read-through's inject; 0 without a Store), staging-buffer
+    fill (`pack`), kernel dispatch and readback (`device`) and response
+    demux (`demux`). Lock waits are left out."""
 
     STAGES = ("prep", "lookup", "store", "pack", "device", "demux")
 
@@ -145,6 +157,8 @@ class Engine:
     def __init__(
         self,
         capacity: int = 1 << 20,
+        store: Optional[Store] = None,
+        loader: Optional[Loader] = None,
         min_width: int = 64,
         max_width: int = 8192,
         device=None,
@@ -158,6 +172,8 @@ class Engine:
         self._prep_fast = (native.prep_pack_fast
                            if isinstance(self.directory, native.NativeKeyDirectory)
                            else None)
+        self.store = store
+        self.loader = loader
         self.min_width = min_width
         # one kernel round must never need more distinct slots than exist
         self.max_width = min(max_width, capacity)
@@ -181,6 +197,14 @@ class Engine:
             self._lone = LoneBuffers(slot, row, slot.numpy(), row.numpy()[:, 0],
                                      self.state.get_device())
             self._inject = InjectStaging.allocate(self.max_width, self.device)
+        # the snapshot's page-locked slab on CUDA, allocated at the first
+        # snapshot_slabs
+        self._slab: Optional[SlabStaging] = None
+        if loader is not None:
+            if hasattr(loader, "load_slabs"):
+                self.load_snapshot_slabs(loader.load_slabs())
+            else:
+                self.load_snapshot(loader.load())
 
     # ------------------------------------------------------------------ API
 
@@ -243,7 +267,8 @@ class Engine:
         """Decide a batch. Exact per-key sequential semantics, any batch size."""
         if now_ms is None:
             now_ms = millisecond_now()
-        if self._prep_fast is not None and 0 < len(requests) <= self.max_width:
+        if (self._prep_fast is not None and self.store is None
+                and 0 < len(requests) <= self.max_width):
             fast = self._fast_window(requests, now_ms)
             if fast is not None:
                 return fast
@@ -396,8 +421,9 @@ class Engine:
 
     def supports_pipeline(self) -> bool:
         """True when the non-blocking launch/collect split is available: the
-        native one-pass prep (the port has no Store hooks)."""
-        return self._prep_fast is not None
+        native one-pass prep and no Store (a Store's read-through and
+        write-through are synchronous host calls around every window)."""
+        return self._prep_fast is not None and self.store is None
 
     def _slot_staging(self, staging, kb: int, w: int) -> WindowStaging:
         """The pipeline slot's staging for a (kb, 9, w) group: from the
@@ -624,8 +650,9 @@ class Engine:
 
     def supports_columnar(self) -> bool:
         """True when the zero-object serving path is available: the native
-        directory (the port has no Store hooks)."""
-        return self._prep_fast is not None
+        directory and no Store (its hooks need the request objects of every
+        round)."""
+        return self._prep_fast is not None and self.store is None
 
     def submit_columnar(self, n: int, keys, key_off, name_len, hits, limit,
                         duration, algorithm, behavior, slow_mask: int,
@@ -851,10 +878,11 @@ class Engine:
         """Decide a lone request against the key's row mirror entirely in C
         (keydir.cpp decide_one): no launch, no engine lock (the directory's
         mutex serializes against batch lookups). None = miss (cold or
-        invalidated mirror, masked behavior, python directory): take the
-        kernel path, then seed_mirror(). now_ms=0 reads the wall clock."""
+        invalidated mirror, masked behavior, python directory, a Store):
+        take the kernel path, then seed_mirror(). now_ms=0 reads the wall
+        clock."""
         d = self.directory
-        if not hasattr(d, "decide_one"):
+        if self.store is not None or not hasattr(d, "decide_one"):
             return None
         if int(req.behavior) & _NATIVE_SINGLE_SLOW_MASK:
             return None
@@ -875,10 +903,10 @@ class Engine:
     def seed_mirror(self, key: str) -> bool:
         """Copy a key's row from the table into its directory mirror (one
         1-slot gather), so later lone requests decide natively. False when
-        the directory keeps no mirrors, the key is unknown or its row is
-        vacant."""
+        the engine has a Store, the directory keeps no mirrors, the key is
+        unknown or its row is vacant."""
         d = self.directory
-        if not hasattr(d, "mirror_seed"):
+        if self.store is not None or not hasattr(d, "mirror_seed"):
             return False
         with self._lock:
             slot = d.peek_slot(key)
@@ -904,6 +932,302 @@ class Engine:
         sync_stream(lone.index)
         return lone.row_np
 
+    def _inject_host_rows(self, rows: np.ndarray) -> None:
+        """Scatter host rows i64[m, 8] (the _apply_inject_rows layout) that
+        lie outside the inject staging, such as a Store's or a mirror
+        flush's: on CUDA copied into the staging and launched from there,
+        max_width rows at a time; on the CPU the plain inject. Caller holds
+        the engine lock."""
+        if len(rows) == 0:
+            return
+        if self._inject is None:
+            inject_rows(self.state, self._up(rows))
+        else:
+            self._inject.inject(self.state, rows)
+
+    def _gather_slots(self, slots) -> np.ndarray:
+        """The first 7 fields of the rows at `slots` (clamped), i64[7, m] on
+        the host: one gather, its slots copied up and its rows back. Caller
+        holds the engine lock."""
+        out = gather_rows(self.state, self._up(np.asarray(slots, np.int32)))
+        return out.cpu().numpy()
+
+    def _flush_mirrors(self) -> None:
+        """Inject every dirty lone-path mirror row, so the table holds the
+        native decisions newer than its rows. Caller holds the engine
+        lock."""
+        flush = getattr(self.directory, "mirror_flush", None)
+        if flush is None:
+            return
+        while True:
+            inj = flush()
+            if not len(inj):
+                return
+            self._inject_host_rows(inj)
+
+    # ---------------------------------------------------- host-state reads
+
+    def resolve_slots(self, slots) -> dict:
+        """Map a small set of slots back to their hash-key strings, by one
+        walk of the directory (the hot-key tracker's call, off the serving
+        path). Slots without a live directory entry are absent."""
+        want = set(int(s) for s in slots)
+        if not want:
+            return {}
+        out: dict = {}
+        if hasattr(self.directory, "items_raw"):
+            blob, off, slots32 = self.directory.items_raw()
+            sl = np.asarray(slots32, np.int64)
+            off = np.asarray(off, np.int64)
+            hit = np.nonzero(np.isin(
+                sl, np.fromiter(want, np.int64, len(want))))[0]
+            for i in hit:
+                lo, hi = int(off[i]), int(off[i + 1])
+                try:
+                    out[int(sl[i])] = bytes(blob[lo:hi]).decode("utf-8")
+                except UnicodeDecodeError:
+                    continue
+        else:  # python directory
+            for key, s in self.directory.items():
+                if int(s) in want:
+                    out[int(s)] = key
+        return out
+
+    def _slots_of(self, keys):
+        """[(key, slot)] for the keys the directory holds, recency
+        untouched. Caller holds the engine lock."""
+        d = self.directory
+        peek = getattr(d, "peek_slot", None)
+        table = None if peek is not None else dict(d.items())
+        pairs = []
+        for key in keys:
+            slot = peek(key) if peek is not None else table.get(key, -1)
+            if slot >= 0:
+                pairs.append((key, int(slot)))
+        return pairs
+
+    def device_hit_counts(self, keys) -> dict:
+        """Per-key lifetime attempt counters, row field 7 (the decide kernel
+        adds every round's requested hits there). A debug surface: the rows
+        are read by indexing the table, as the JAX package's is not jitted
+        either (the gather kernel returns fields 0-6 only)."""
+        with self._lock:
+            pairs = self._slots_of(keys)
+            if not pairs:
+                return {}
+            idx = torch.tensor([s for _, s in pairs], dtype=torch.int64,
+                               device=self.device)
+            rows = self.state[idx].cpu().numpy()
+        return {key: int(rows[i, 7]) for i, (key, _) in enumerate(pairs)}
+
+    def rows_for_keys(self, keys):
+        """Point-read the named keys' live rows -> (found_keys,
+        rows i64[len(found), 7]) in BucketSnapshot field order (the reshard
+        exporter's settle read). Dirty lone-path mirrors are injected first,
+        as snapshot_slabs does; absent, vacant and expired keys are not in
+        found_keys."""
+        now = millisecond_now()
+        with self._lock:
+            self._flush_mirrors()
+            pairs = self._slots_of(keys)
+            if not pairs:
+                return [], np.zeros((0, 7), np.int64)
+            rows = self._gather_slots([s for _, s in pairs]).T
+        live = (rows[:, 0] >= 0) & (rows[:, 5] >= now)
+        found = [key for (key, _), ok in zip(pairs, live) if ok]
+        return found, np.ascontiguousarray(rows[live])
+
+    # ------------------------------------------------------- persistence
+
+    def _restore_rows(self, m: int) -> np.ndarray:
+        """Where a restore chunk's m <= max_width inject rows go: the first
+        m rows of the page-locked staging on CUDA (launched from there by
+        _apply_inject_rows), a new array on the CPU. Caller holds the
+        engine lock."""
+        out = self._inject_rows_out()
+        return np.empty((m, 8), np.int64) if out is None else out[:m]
+
+    def load_snapshot(self, items) -> int:
+        """Seed table rows from BucketSnapshots (a Loader's load()),
+        consumed incrementally: one max_width chunk exists at a time. The
+        engine lock is taken per chunk and never while pulling the source,
+        which may be this engine's own snapshot_stream."""
+        it_stream = iter(items)
+        n = 0
+        while True:
+            chunk = list(itertools.islice(it_stream, self.max_width))
+            if not chunk:
+                break
+            with self._lock:
+                slots, _ = self.directory.lookup([it.key for it in chunk])
+                rows = self._restore_rows(len(chunk))
+                rows[:, 0] = slots
+                rows[:, 1:] = [(it.algo, it.limit, it.remaining, it.duration,
+                                it.stamp, it.expire_at, it.status) for it in chunk]
+                self._apply_inject_rows(rows)
+                n += len(chunk)
+        return n
+
+    def load_snapshot_slabs(self, slabs) -> int:
+        """Binary restore: consume (key_blob, key_offsets i64[m+1],
+        rows i64[m, 7]) chunks, snapshot_slabs' shape, with no per-row host
+        objects, max_width rows an inject. Same locking as load_snapshot.
+        The dirty-mirror rows a lookup_raw returns are dropped: the restored
+        rows overwrite those keys."""
+        lookup_raw = getattr(self.directory, "lookup_raw", None)
+        n = 0
+        for blob, off, rows in slabs:
+            off = np.asarray(off, np.int64)
+            rows = np.asarray(rows, np.int64)
+            m = len(off) - 1
+            for s in range(0, m, self.max_width):
+                e = min(s + self.max_width, m)
+                with self._lock:
+                    if lookup_raw is not None:
+                        slots, _fresh, _inj = lookup_raw(
+                            bytes(blob[off[s]:off[e]]), off[s:e + 1] - off[s])
+                    else:
+                        keys = [blob[off[i]:off[i + 1]].decode("utf-8")
+                                for i in range(s, e)]
+                        slots, _ = self.directory.lookup(keys)
+                    inject = self._restore_rows(e - s)
+                    inject[:, 0] = slots
+                    inject[:, 1:] = rows[s:e]
+                    self._apply_inject_rows(inject)
+                    n += e - s
+        return n
+
+    # 16 MiB of rows per slab: the streamed snapshot's host footprint per
+    # step, and the page-locked slab's size on CUDA
+    _SNAPSHOT_SLAB_ROWS = 1 << 18
+
+    def _read_slab(self, start: int, rows: int) -> np.ndarray:
+        """Table rows start..start+rows on the host: on CUDA through the
+        page-locked slab (allocated at the first snapshot), a view valid
+        until the next read; on the CPU a view of the table. Caller holds
+        the engine lock and copies out what it keeps."""
+        if self.device.type == "cpu":
+            return self.state.narrow(0, start, rows).numpy()
+        if self._slab is None or len(self._slab.rows_np) != rows:
+            self._slab = SlabStaging.allocate(rows, self.device)
+        return self._slab.read(self.state, start)
+
+    def snapshot_slabs(self, include_expired: bool = False):
+        """Stream live rows as binary slabs: yields (key_blob: bytes,
+        key_offsets: i64[m+1], rows: i64[m, 7]) chunks in slot order, field
+        order as BucketSnapshot (algo, limit, remaining, duration, stamp,
+        expire_at, status), with no per-row host objects.
+
+        The table is read in slabs of _SNAPSHOT_SLAB_ROWS rows, each
+        filtered in numpy (vacant rows, and expired ones unless
+        `include_expired`), so the extra host memory is one slab and its
+        live subset whatever the table's size. The engine lock is taken per
+        slab, never across a yield. Under live traffic each slab is
+        consistent in itself, and an entry whose slot was recycled between
+        the directory walk and its slab is checked (one batch peek a slab)
+        and skipped."""
+        now = millisecond_now()
+        with self._lock:
+            self._flush_mirrors()
+            if hasattr(self.directory, "items_raw"):
+                blob, off, slots32 = self.directory.items_raw()
+            else:  # python directory: build the arena once
+                entries = self.directory.items()
+                keys_b = [k.encode("utf-8") for k, _ in entries]
+                blob = b"".join(keys_b)
+                off = np.zeros(len(keys_b) + 1, np.int64)
+                if keys_b:
+                    np.cumsum([len(b) for b in keys_b], out=off[1:])
+                slots32 = np.fromiter((s for _, s in entries), np.int32,
+                                      count=len(entries))
+        n = len(slots32)
+        if n == 0:
+            return
+        off = np.asarray(off, np.int64)
+        lens = off[1:] - off[:-1]
+        slots = slots32.astype(np.int64)
+        order = np.argsort(slots, kind="stable")
+        slots_sorted = slots[order]
+        S = min(self._SNAPSHOT_SLAB_ROWS, self.capacity)
+        batch_peek = getattr(self.directory, "peek_slots_raw", None)
+        peek_one = getattr(self.directory, "peek_slot", None)
+        blob_arr = np.frombuffer(blob, np.uint8)
+
+        def gather_keys(sel):
+            """The selected keys' bytes and offsets, without a python loop."""
+            ln = lens[sel]
+            sub_off = np.zeros(sel.size + 1, np.int64)
+            np.cumsum(ln, out=sub_off[1:])
+            total = int(sub_off[-1])
+            # each key's start repeated over its length, plus the offset
+            # within the key
+            pos = np.repeat(off[sel] - sub_off[:-1], ln) + \
+                np.arange(total, dtype=np.int64)
+            return blob_arr[pos].tobytes(), sub_off
+
+        for a in range(0, self.capacity, S):
+            lo, hi = np.searchsorted(slots_sorted, (a, a + S))
+            if lo == hi:
+                continue  # no directory entries in this row range
+            # the final partial slab is read from capacity - S, as the JAX
+            # package's dynamic_slice clamps its start, and indexed relative
+            # to that start
+            cs = min(a, self.capacity - S)
+            idx = order[lo:hi]  # entry indices, slot order
+            ent_slots = slots_sorted[lo:hi]
+            with self._lock:
+                rows = self._read_slab(cs, S)[ent_slots - cs]  # a copy
+            live = rows[:, 0] >= 0  # algo < 0 marks a vacant row
+            if not include_expired:
+                live &= rows[:, 5] >= now
+            sel = idx[live]
+            if sel.size == 0:
+                continue
+            ent_sel = ent_slots[live].astype(np.int32)
+            sub_blob, sub_off = gather_keys(sel)
+            # a slot recycled since the walk is not this key's row any more
+            if batch_peek is not None:
+                okm = batch_peek(sub_blob, sub_off) == ent_sel
+            elif peek_one is not None:
+                okm = np.fromiter(
+                    (peek_one(sub_blob[sub_off[k]:sub_off[k + 1]]
+                              .decode("utf-8")) == int(s)
+                     for k, s in enumerate(ent_sel)), bool, count=sel.size)
+            else:
+                okm = np.ones(sel.size, bool)
+            rows_live = rows[live]
+            if not okm.all():
+                keep = np.flatnonzero(okm)
+                sub_blob, sub_off = gather_keys(sel[keep])
+                rows_live = rows_live[keep]
+            yield sub_blob, sub_off, np.ascontiguousarray(rows_live[:, :7])
+
+    def snapshot_stream(self, include_expired: bool = False):
+        """Live rows as BucketSnapshots: snapshot_slabs' walk, order and
+        consistency, one object a row."""
+        for blob, off, rows in self.snapshot_slabs(include_expired):
+            for j in range(len(off) - 1):
+                r = rows[j]
+                yield BucketSnapshot(
+                    key=blob[off[j]:off[j + 1]].decode("utf-8"),
+                    algo=int(r[0]), limit=int(r[1]), remaining=int(r[2]),
+                    duration=int(r[3]), stamp=int(r[4]),
+                    expire_at=int(r[5]), status=int(r[6]))
+
+    def snapshot(self, include_expired: bool = False) -> List[BucketSnapshot]:
+        """snapshot_stream as a list (small tables, tests)."""
+        return list(self.snapshot_stream(include_expired))
+
+    def close(self) -> None:
+        """Save the table through the Loader, as a daemon does at shutdown:
+        the binary slab stream to a Loader that takes it, BucketSnapshots
+        to any other."""
+        if self.loader is not None:
+            if hasattr(self.loader, "save_slabs"):
+                self.loader.save_slabs(self.snapshot_slabs())
+            else:
+                self.loader.save(self.snapshot_stream())
+
     # ------------------------------------------------------------- internals
 
     def _split_scannable(self, windows):
@@ -925,10 +1249,18 @@ class Engine:
             return windows, []
         return windows[:split], tail
 
-    def _lookup(self, round_work):
-        keys = [item[1].hash_key() for item in round_work]
-        slots, fresh, inj = self.directory.lookup_inject(keys, self._inject_rows_out())
-        self._apply_inject_rows(inj)
+    def _lookup(self, keys):
+        """Slots and fresh flags of `keys`, the dirty-mirror rows the lookup
+        surfaced injected first. A window's keys fit the inject staging; a
+        Store's scanned-tail union may not, and its rows are copied in.
+        Caller holds the engine lock."""
+        if len(keys) <= self.max_width:
+            slots, fresh, inj = self.directory.lookup_inject(
+                keys, self._inject_rows_out())
+            self._apply_inject_rows(inj)
+        else:
+            slots, fresh, inj = self.directory.lookup_inject(keys)
+            self._inject_host_rows(inj)
         return slots, fresh
 
     def _demux(self, round_work, out, responses) -> None:
@@ -943,21 +1275,58 @@ class Engine:
 
     def _apply_windows_scanned(self, windows, now_ms, responses) -> None:
         """Retire every scannable window in ⌈N/32⌉ launches, window k+1 of
-        a launch observing window k's writes."""
+        a launch observing window k's writes.
+
+        With a Store, the tail takes one read-through before it and one
+        write-through after it (each key's final row), over the union of
+        its keys, resolved by one lookup: the first window alone is not a
+        superset when round 0 was cut at max_width (rounds [64+2, 4, 4] put
+        the 4 duplicated keys' first occurrences in a head chunk). Each
+        window takes its slots from that lookup, and a key's fresh flag goes
+        to its first window only: a second lookup would clear the flag of a
+        key first seen in a later tail window, and the kernel would read a
+        recycled slot's stale row as live."""
         stage = self.stats.stage_ns
         width = self.min_width  # _split_scannable guarantees every window fits
+        union = None
+        if self.store is not None and windows:
+            seen_keys = {}
+            for wk in windows:
+                for item in wk:
+                    seen_keys.setdefault(item[1].hash_key(), item)
+            t = time.perf_counter_ns()
+            ukeys = list(seen_keys)
+            uslots, ufresh = self._lookup(ukeys)
+            t2 = time.perf_counter_ns()
+            stage["lookup"] += t2 - t
+            uwork = list(seen_keys.values())
+            ufresh = self._store_read_through(uwork, ukeys, uslots, ufresh, now_ms)
+            stage["store"] += time.perf_counter_ns() - t2
+            union = (uwork, ukeys, uslots)
+            slot_map = dict(zip(ukeys, uslots))
+            fresh_map = {k: f for k, f in zip(ukeys, ufresh) if f}
+
+        def resolve(wk):
+            keys = [item[1].hash_key() for item in wk]
+            if union is None:
+                return self._lookup(keys)
+            return ([slot_map[k] for k in keys],
+                    [fresh_map.pop(k, False) for k in keys])
+
         for g0 in range(0, len(windows), self._MAX_SCAN):
             group = windows[g0:g0 + self._MAX_SCAN]
             if len(group) == 1:
                 # a trailing singleton rides the single-window path
-                self._apply_round(group[0], now_ms, responses)
+                self._apply_round(group[0], now_ms, responses,
+                                  skip_store=union is not None,
+                                  resolved=None if union is None else resolve(group[0]))
                 continue
             k = _bucket_pow2(len(group))
             stacked = np.zeros((k, 9, width), np.int64)
             stacked[:, 0, :] = -1  # pad windows are all padding lanes
             for gi, wk in enumerate(group):
                 t = time.perf_counter_ns()
-                slots, fresh = self._lookup(wk)
+                slots, fresh = resolve(wk)
                 t2 = time.perf_counter_ns()
                 stage["lookup"] += t2 - t
                 pack_window(wk, slots, fresh, width, out=stacked[gi])
@@ -969,14 +1338,29 @@ class Engine:
             for gi, wk in enumerate(group):
                 self._demux(wk, out[gi], responses)
             stage["demux"] += time.perf_counter_ns() - t2
+        if union is not None:
+            t = time.perf_counter_ns()
+            self._store_write_through(*union)
+            stage["store"] += time.perf_counter_ns() - t
 
-    def _apply_round(self, round_work, now_ms, responses) -> None:
-        """One window, one launch. Caller holds the engine lock."""
+    def _apply_round(self, round_work, now_ms, responses,
+                     skip_store: bool = False, resolved=None) -> None:
+        """One window, one launch. `skip_store` marks a tail singleton of
+        _apply_windows_scanned, whose read-through and write-through cover
+        its keys already; `resolved` is that pass's (slots, fresh), so no
+        second lookup clears a fresh flag. Caller holds the engine lock."""
         stage = self.stats.stage_ns
         t = time.perf_counter_ns()
-        slots, fresh = self._lookup(round_work)
+        keys = [item[1].hash_key() for item in round_work]
+        slots, fresh = self._lookup(keys) if resolved is None else resolved
         t1 = time.perf_counter_ns()
         stage["lookup"] += t1 - t
+        use_store = self.store is not None and not skip_store
+        if use_store:
+            fresh = self._store_read_through(round_work, keys, slots, fresh, now_ms)
+            t2 = time.perf_counter_ns()
+            stage["store"] += t2 - t1
+            t1 = t2
         w = _bucket_width(len(round_work), self.min_width, self.max_width)
         packed = pack_window(round_work, slots, fresh, w)
         t2 = time.perf_counter_ns()
@@ -985,4 +1369,52 @@ class Engine:
         t3 = time.perf_counter_ns()
         stage["device"] += t3 - t2
         self._demux(round_work, out, responses)
-        stage["demux"] += time.perf_counter_ns() - t3
+        t4 = time.perf_counter_ns()
+        stage["demux"] += t4 - t3
+        if use_store:
+            self._store_write_through(round_work, keys, slots)
+            stage["store"] += time.perf_counter_ns() - t4
+
+    def _store_read_through(self, round_work, keys, slots, fresh, now_ms):
+        """Ask the Store for the rows the table cannot serve (fresh, vacant
+        or expired, or of another algorithm, which the Store then removes)
+        and inject what it returns before the window decides. Returns the
+        fresh flags, cleared where a row was injected. Caller holds the
+        engine lock."""
+        cols = self._gather_slots(slots)
+        algo_c, exp_c = cols[0].tolist(), cols[5].tolist()
+        fresh = list(fresh)
+        got = []
+        for j, (_i, r, _ge, _gi) in enumerate(round_work):
+            live = not fresh[j] and algo_c[j] >= 0 and now_ms <= exp_c[j]
+            if live and algo_c[j] != int(r.algorithm):
+                # an algorithm switch discards the old bucket everywhere
+                self.store.remove(keys[j])
+                live = False
+            if live:
+                continue
+            item = self.store.get(r)
+            if item is None:
+                continue
+            got.append((slots[j], item.algo, item.limit, item.remaining,
+                        item.duration, item.stamp, item.expire_at, item.status))
+            fresh[j] = False  # the injected row is live now
+        if got:
+            self._inject_host_rows(np.array(got, np.int64))
+        return fresh
+
+    def _store_write_through(self, round_work, keys, slots) -> None:
+        """Report each key's row after the window to the Store; a row the
+        window cleared (RESET_REMAINING) is removed from the Store and its
+        key from the directory. Caller holds the engine lock."""
+        cols = self._gather_slots(slots).tolist()
+        for j, (_i, r, _ge, _gi) in enumerate(round_work):
+            algo = cols[0][j]
+            if algo < 0:
+                self.store.remove(keys[j])
+                self.directory.drop(keys[j])
+                continue
+            self.store.on_change(r, BucketSnapshot(
+                key=keys[j], algo=algo, limit=cols[1][j],
+                remaining=cols[2][j], duration=cols[3][j],
+                stamp=cols[4][j], expire_at=cols[5][j], status=cols[6][j]))

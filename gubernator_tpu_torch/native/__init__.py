@@ -5,7 +5,9 @@ directories assign the same slots to the same key stream, LRU recycling at
 a full table included. This module binds the parts the engine uses:
 
 - NativeKeyDirectory: the open-addressing LRU map key -> slot, with the row
-  mirrors of the lone-request path (decide_one, mirror_seed, mirror_flush);
+  mirrors of the lone-request path (decide_one, mirror_seed, mirror_flush)
+  and the packed-arena calls of the binary snapshot (items_raw,
+  peek_slots_raw, lookup_raw);
 - prep_pack_fast: the one-pass window prep (validate, first-occurrence
   round split, directory lookup and pack of the wide staging rows in one C
   call over the request objects);
@@ -73,6 +75,10 @@ def load_library() -> ctypes.CDLL:
         lib.keydir_dump.restype = c.c_int64
         lib.keydir_dump.argtypes = [
             c.c_void_p, c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p, c.c_int64,
+        ]
+        lib.keydir_peek_batch.restype = c.c_int64
+        lib.keydir_peek_batch.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_void_p, c.c_int64, c.c_void_p,
         ]
         lib.keydir_size.restype = c.c_int64
         lib.keydir_size.argtypes = [c.c_void_p]
@@ -321,11 +327,13 @@ class NativeKeyDirectory:
         b = key.encode("utf-8")
         return int(self._lib.keydir_peek(self._kd, b, len(b)))
 
-    def items(self) -> List[Tuple[str, int]]:
-        """(key, slot) pairs, most recently used first."""
+    def items_raw(self) -> Tuple[bytes, np.ndarray, np.ndarray]:
+        """(key_blob, offsets i64[n+1], slots i32[n]), most recently used
+        first, with no per-key decode: the streamed snapshot's directory
+        walk."""
         n = len(self)
         if n == 0:
-            return []
+            return b"", np.zeros(1, np.int64), np.empty(0, np.int32)
         buf_cap = 1 << 16
         while True:
             key_buf = ctypes.create_string_buffer(buf_cap)
@@ -338,9 +346,48 @@ class NativeKeyDirectory:
             if count >= 0:
                 break
             buf_cap = max(buf_cap * 2, -count)
-        raw = key_buf.raw
+        count = int(count)
+        return (key_buf.raw[:int(offsets[count])], offsets[:count + 1],
+                slots[:count])
+
+    def peek_slots_raw(self, key_blob: bytes, offsets: np.ndarray) -> np.ndarray:
+        """Batch peek over a packed key arena -> i32 slots (-1 = absent),
+        LRU order untouched: one C pass per snapshot slab."""
+        n = len(offsets) - 1
+        out = np.empty(n, np.int32)
+        if n:
+            off = np.ascontiguousarray(offsets, np.int64)
+            self._lib.keydir_peek_batch(
+                self._kd, key_blob, off.ctypes.data, n, out.ctypes.data)
+        return out
+
+    def lookup_raw(self, key_blob: bytes, offsets: np.ndarray):
+        """lookup_inject over a packed key arena (the binary restore: no
+        per-key str round trip). Returns (slots i32[n], fresh bool[n],
+        dirty-mirror rows i64[m, 8])."""
+        n = len(offsets) - 1
+        slots = np.empty(n, np.int32)
+        fresh = np.empty(n, np.uint8)
+        inject = np.empty((max(n, 1), 8), np.int64)
+        n_inj = np.zeros(1, np.int32)
+        off = np.ascontiguousarray(offsets, np.int64)
+        done = self._lib.keydir_lookup_batch(
+            self._kd, key_blob, off.ctypes.data, n,
+            slots.ctypes.data, fresh.ctypes.data,
+            inject.ctypes.data, n_inj.ctypes.data,
+        )
+        if done != n:
+            raise RuntimeError(
+                f"key directory over-committed: >{self.capacity} distinct "
+                "keys in one lookup"
+            )
+        return slots, fresh.astype(bool), inject[:int(n_inj[0])]
+
+    def items(self) -> List[Tuple[str, int]]:
+        """(key, slot) pairs, most recently used first."""
+        raw, offsets, slots = self.items_raw()
         return [(raw[offsets[i]:offsets[i + 1]].decode("utf-8"), int(slots[i]))
-                for i in range(int(count))]
+                for i in range(len(slots))]
 
     def keys(self) -> List[str]:
         return [k for k, _ in self.items()]

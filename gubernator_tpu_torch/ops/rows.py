@@ -27,6 +27,9 @@ Three functions, each with a plain version and a kernel in csrc/rows.cu:
   checks that, the kernel trusts it. A slot outside [0, N) is dropped by
   both.
 
+SlabStaging is the streamed snapshot's slab read: no kernel, one
+contiguous copy of table rows into page-locked host memory.
+
 Each dispatcher takes tensors on either device: the CPU runs the plain
 version, CUDA launches the kernel or raises; it never falls back. The CUDA
 wrappers share the launch path of ops/_launch.py.
@@ -228,6 +231,40 @@ class InjectStaging:
             self.free()[:len(chunk)] = chunk
             self.launch(state, len(chunk))
 
+
+
+class SlabStaging:
+    """The engine's page-locked snapshot slab on CUDA: one i64[S, 8] buffer
+    and an event, allocated at the engine's first snapshot.
+
+    `read(state, start)` copies the table rows start..start+S into the
+    buffer (one contiguous device-to-host copy on the current stream: the
+    JAX package's `_jit_slab`, models/engine.py:142, a dynamic slice),
+    waits on the buffer's own event, not the whole card, and returns the
+    buffer's numpy view. The view is valid until the next read: the caller
+    copies out what it keeps before it lets go of the engine lock."""
+
+    def __init__(self, rows: torch.Tensor, done: torch.cuda.Event):
+        _launch.check(rows, "snapshot slab", I64, (None, ROW_FIELDS), _launch.HOST)
+        self.rows = rows
+        self.rows_np = rows.numpy()
+        self.done = done
+        self.reads = 0  # slabs copied down
+
+    @classmethod
+    def allocate(cls, rows: int, device: torch.device) -> "SlabStaging":
+        """S = `rows` page-locked rows and an event on `device`; a failed
+        allocation raises."""
+        return cls(torch.empty((rows, ROW_FIELDS), dtype=I64, pin_memory=True),
+                   torch.cuda.Event())
+
+    def read(self, state: torch.Tensor, start: int) -> np.ndarray:
+        """Table rows start..start+S, through the buffer."""
+        self.rows.copy_(state.narrow(0, start, len(self.rows_np)), non_blocking=True)
+        self.done.record(torch.cuda.current_stream(state.device))
+        self.done.synchronize()
+        self.reads += 1
+        return self.rows_np
 
 def gather_rows_cuda(state: torch.Tensor, slot: torch.Tensor,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:

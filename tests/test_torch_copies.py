@@ -1,7 +1,7 @@
 """The port's copies of JAX-package host modules stay equal to their originals.
 
-obs/witness.py, obs/trace.py, service/deadline.py and service/combiner.py
-are copied mechanically: each may differ from its original only by the
+obs/witness.py, obs/trace.py, service/deadline.py, service/combiner.py and
+store.py are copied mechanically: each may differ from its original only by the
 package name and the substitutions listed here, so a change on either side
 shows as a failure until the other follows. (native/keydir.cpp is held byte
 for byte in test_torch_native.py.)
@@ -25,6 +25,7 @@ SUBSTITUTIONS = {
     "obs/trace.py": [],
     "service/deadline.py": [],
     "service/combiner.py": [],
+    "store.py": [],
 }
 
 
