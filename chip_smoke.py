@@ -11,17 +11,20 @@ Run from the root of the repository. Phases, each fatal on failure:
    source's build time is printed;
 2. hold the decide kernels to their plain PyTorch version on the card, on
    a 10,000,001-row table populated from --seed: the one-window kernel in
-   the wide, compact and lean formats at W in {64, 1024, 8192}, the scan
-   kernel at K in {2, 32}, W = 64, and on a herd group (32 windows, one live
-   lane each, one row). Responses and whole tables must be bit-equal; each
-   shape is timed against its plain version and its bound. Then the sweep,
-   run once: the one-window kernel in blocks of 64 and 128 at each W, and
-   the scan spread over 1, 2, 4 and 8 blocks at K = 32 (each variant held
-   bit-equal first; the library keeps the winners as constants); then the
-   edge lanes, bit-equal: clamped, wrapping and overflowing lanes, the lean
-   sign bit, lanes past the table beside the lane that writes row C-1 (one
-   window of 8192 lanes and scan groups, every format), herds on rows
-   with a negative duration, and scans run in chunks or window by window;
+   the wide, compact, lean and interned formats at W in {64, 1024, 8192},
+   the scan kernel at K in {2, 32}, W = 64, and on a herd group (32
+   windows, one live lane each, one row). Responses and whole tables must
+   be bit-equal (an interned case also to the compact kernel on the same
+   window); each shape is timed against its plain version and its bound.
+   Then the sweep, run once over the engine's three formats: the
+   one-window kernel in blocks of 64 and 128 at each W, and the scan spread
+   over 1, 2, 4 and 8 blocks at K = 32 (each variant held bit-equal first;
+   the library keeps the winners as constants); then the edge lanes,
+   bit-equal: clamped, wrapping and overflowing lanes, the lean sign bit,
+   the interned config id 255, lanes past the table beside the lane that
+   writes row C-1 (one window of 8192 lanes and scan groups, every format),
+   herds on rows with a negative duration, and scans run in chunks or
+   window by window;
 3. the main path: Engine(device="cuda", capacity=10_000_001) on the native
    directory after warmup() takes --windows client batches of 8192
    requests over 1,000,000 Zipf(1.1) keys through the one-pass fast
@@ -101,7 +104,29 @@ Run from the root of the repository. Phases, each fatal on failure:
    the 100,000 hottest keys' buckets at the start) against a CPU twin with
    its own: answers, Store contents and calls, and rows at every key
    equal, injects and gathers launched on the card; and rows_for_keys,
-   device_hit_counts and resolve_slots at 1,000 keys against the twin.
+   device_hit_counts and resolve_slots at 1,000 keys against the twin;
+8. the device directory: (8a) the probe kernel (csrc/devdir.cu) against
+   its plain version on fingerprint and stamp columns of 10,000,001
+   positions made from --seed (about half occupied, a region filled
+   solid, half of it stamped this batch) at W in {64, 1024, 8192}, lanes
+   of matches, new keys, keys based in the solid region and distinct keys
+   of one base, and padding; with and without eviction, and at 5 and 16
+   positions; slot, fresh, retry, both columns and the staging's rows 0
+   and 8 bit-equal; the vacancy sweep at 10,000,001 positions; each timed
+   against its plain version and its bound; (8b) DevDirEngine(device=
+   "cuda", capacity=10_000_001, widths 64-8192) after warmup() on phase
+   3's first 24 windows against a DevDirEngine(device="cpu") twin
+   (responses, columns, table and EngineStats equal) and the host-directory
+   Engine on the card (responses equal but where the device directory
+   answers with its contention error); (8c) DevDirEngine(capacity=65,536)
+   on 320 windows of 256 requests of the same stream against its CPU twin,
+   sweeps on the path, then capacity 8,192 on 80 such windows, full, so
+   that claims evict; (8d) phase 3's first 8 windows as
+   wire columns through native.prep_pack_interned and
+   decide_packed_interned on the card (the leftovers through an Engine
+   whose dispatches ship interned when eligible, so the interned scan
+   runs too), against a CPU twin and against prep_pack_columnar with the
+   compact kernel on a second card table: answers and tables equal.
 
 Device times come from torch.profiler, for the kernels and for each
 library call they are compared with; where the profiler gives none the
@@ -109,10 +134,11 @@ record holds null, never a host-clock time. Every line with a time ends
 with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
-3b, 4, the bench_rows loop, each run of phase 6, and phase 7's restores
-and Store path) and read just after; every kernel must have launched (each
-decide form and format on phases 3, 3b, 4, 6 and 7 together), inject and
-gather on phase 3, both through their pinned entry points only. The last two lines are the
+3b, 4, the bench_rows loop, each run of phase 6, phase 7's restores and
+Store path, and phase 8b-8d) and read just after; every kernel must have
+launched (each decide form and format on phases 3-8 together, the interned
+ones on 8d), inject and gather on phase 3, both through their pinned entry
+points only, the probe and the sweep on 8b-8c. The last two lines are the
 {"kernels": [...]} record and the contract line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -138,7 +164,8 @@ import torch
 
 from gubernator_tpu_torch import bench_rows
 from gubernator_tpu_torch.models.engine import Engine
-from gubernator_tpu_torch.ops import _build, _launch, decide as dk, ring as rk, rows as rowk
+from gubernator_tpu_torch.models.devdir_engine import DevDirEngine
+from gubernator_tpu_torch.ops import _build, _launch, decide as dk, devdir as ddk, ring as rk, rows as rowk
 from gubernator_tpu_torch.parallel import MeshPlan, make_global_sync, make_sharded_table, shard_of_key
 from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, _psum
 from gubernator_tpu_torch.store import BinarySnapshotLoader, BucketSnapshot, MockStore
@@ -163,15 +190,23 @@ SCALAR_OPS_PER_S = 67e12
 DECIDE_OPS_PER_LANE = 2 * 100  # ~100 int64 operations in the lattice
 RESET = int(Behavior.RESET_REMAINING)
 GREG = int(Behavior.DURATION_IS_GREGORIAN)
-FORMATS = {"wide": dk.WIDE, "compact": dk.COMPACT, "lean": dk.LEAN}
-STAGE_BYTES = {"wide": 72, "compact": 20, "lean": 4}
-RESP_BYTES = {"wide": 32, "compact": 16, "lean": 16}
+FORMATS = {"wide": dk.WIDE, "compact": dk.COMPACT, "lean": dk.LEAN, "interned": dk.INTERNED}
+ENGINE_FORMATS = ("wide", "compact", "lean")  # what the Engine ships; the sweep's
+STAGE_BYTES = {"wide": 72, "compact": 20, "lean": 4, "interned": 8}
+RESP_BYTES = {"wide": 32, "compact": 16, "lean": 16, "interned": 16}
+CFG_BYTES = {"wide": 0, "compact": 0, "lean": dk.LEAN_MAX_CFG * 32,
+             "interned": dk.INTERN_MAX_CFG * 16}
 REPLACES = {"decide_wide": "gubernator_tpu/ops/decide.py:464",
             "decide_compact": "gubernator_tpu/ops/decide.py:536",
             "decide_lean": "gubernator_tpu/ops/decide.py:844",
             "decide_scan_wide": "gubernator_tpu/ops/decide.py:495",
             "decide_scan_compact": "gubernator_tpu/ops/decide.py:575",
             "decide_scan_lean": "gubernator_tpu/ops/decide.py:872",
+            "decide_interned": "gubernator_tpu/ops/decide.py:650",
+            "decide_scan_interned": "gubernator_tpu/ops/decide.py:675",
+            "probe_assign_evict": "gubernator_tpu/ops/devdir.py:131",
+            "probe_assign": "gubernator_tpu/ops/devdir.py:83",
+            "refresh_vacancies": "gubernator_tpu/ops/devdir.py:196",
             "ring_all_reduce": "gubernator_tpu/ops/ring.py:39",
             "inject_rows": "gubernator_tpu/models/engine.py:74",
             "gather_rows": "gubernator_tpu/models/engine.py:86",
@@ -180,7 +215,8 @@ SOURCES = {**{name: "gubernator_tpu_torch/csrc/decide.cu" for name in dk.launch_
            "ring_all_reduce": "gubernator_tpu_torch/csrc/ring.cu",
            "inject_rows": "gubernator_tpu_torch/csrc/rows.cu",
            "gather_rows": "gubernator_tpu_torch/csrc/rows.cu",
-           "row_bump": "gubernator_tpu_torch/csrc/rows.cu"}
+           "row_bump": "gubernator_tpu_torch/csrc/rows.cu",
+           **{name: "gubernator_tpu_torch/csrc/devdir.cu" for name in ddk.launch_counts}}
 # the shape and form the row entries of the kernels line are timed at: the
 # main path's own (phase 3 injects up to LONE_KEYS rows and gathers 1 slot,
 # both from page-locked host memory); row_bump's is the probe's BATCH
@@ -230,36 +266,43 @@ def event_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def profiled_ms(fn, iters, kernel_substr=None):
+def profiled_ms(fn, iters, kernel_substr=None, per_call=False):
     """Mean device milliseconds from torch.profiler over `iters` calls: per
-    launch of the kernels whose name holds `kernel_substr`, or, when it is
+    launch of the kernels whose name holds `kernel_substr` (per call of
+    them when `per_call`: a wrapper that launches several), or, when it is
     None, per call of everything the call ran on the device (kernels and
-    copies: a library call's device time). None, logged, when the profiler
-    fails or its trace shows no device time: the caller records null, never
-    a host-clock time in its place."""
+    copies: a library call's device time). A trace that shows no device
+    time is taken once more (the profiler now and then records none). None,
+    logged, when the profiler fails or neither trace shows device time: the
+    caller records null, never a host-clock time in its place."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i)
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        log(f"  profiler failed ({e}): device ms recorded as null")
-        return None
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel_substr is None or kernel_substr in e.key:
-            total_us += e.self_device_time_total
-            count += e.count
-    if kernel_substr is None:
-        count = iters
-    if not count or total_us <= 0:
-        log(f"  the trace shows no device time for {kernel_substr or 'the call'}: "
-            "device ms recorded as null")
-        return None
-    return total_us / count / 1e3
+    for _attempt in range(2):
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(iters):
+                    fn(i)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            log(f"  profiler failed ({e}): device ms recorded as null")
+            return None
+        total_us, count = 0.0, 0
+        seen = []
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                seen.append(e.key[:60])
+            if kernel_substr is None or kernel_substr in e.key:
+                total_us += e.self_device_time_total
+                count += e.count
+        if kernel_substr is None or per_call:
+            count = iters
+        if count and total_us > 0:
+            return total_us / count / 1e3
+        log(f"  the trace shows no device time for {kernel_substr or 'the call'} "
+            f"(device time under {seen[:3]})")
+    log("  device ms recorded as null")
+    return None
 
 
 def host_us(fn, iters):
@@ -339,14 +382,18 @@ def stimulus(rng, table, width, fmt, *, slots=None, live=0.9):
 
 
 def staged(fmt, wide, capacity, device):
-    """The wide host window as the device tensors of `fmt` (lean: the lane
-    words and the config table; else cfg None)."""
+    """The wide host window as the device tensors of `fmt` (lean and
+    interned: the staging and the config table; else cfg None)."""
     if fmt == "wide":
         return torch.from_numpy(wide).to(device), None
     if fmt == "compact":
         c = dk.compact_window(wide)
         check(c is not None, "compact stimulus not eligible")
         return torch.from_numpy(c).to(device), None
+    if fmt == "interned":
+        iw = dk.intern_window(wide)
+        check(iw is not None, "interned stimulus not eligible")
+        return torch.from_numpy(iw[0]).to(device), torch.from_numpy(iw[1]).to(device)
     ln = dk.lean_window(wide, capacity)
     check(ln is not None, "lean stimulus not eligible")
     return torch.from_numpy(ln[0]).to(device), torch.from_numpy(ln[1]).to(device)
@@ -368,8 +415,7 @@ def decide_bound(fmt, wide, rows):
     for each live lane."""
     lanes = wide[..., 0, :].size
     live = int((wide[..., 0, :] >= 0).sum())
-    n_bytes = rows * 128 + lanes * (STAGE_BYTES[fmt] + RESP_BYTES[fmt]) + (
-        dk.LEAN_MAX_CFG * 32 if fmt == "lean" else 0)
+    n_bytes = rows * 128 + lanes * (STAGE_BYTES[fmt] + RESP_BYTES[fmt]) + CFG_BYTES[fmt]
     b_ms, b_by = bound_ms(n_bytes, live * DECIDE_OPS_PER_LANE)
     return dict(live_lanes=live, rows=rows, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by)
 
@@ -418,7 +464,7 @@ def phase_decide(seed, dev, results):
         scan = k > 0
         wide = make(fmt, width, k, kind)
         packed, cfg = staged(fmt, wide, CAPACITY, dev)
-        hold(f, kern, plain, packed, cfg, scan, f"{fmt} W={width} K={k} {kind}", errs)
+        hold(f, kern, plain, packed, cfg, scan, f"{fmt} W={width} K={k} {kind}", errs, wide)
 
         # timing: 16 distinct stimuli, cycled, so rows come cold from HBM
         stims = [staged(fmt, make(fmt, width, k, kind), CAPACITY, dev) for _ in range(16)]
@@ -446,9 +492,12 @@ def phase_decide(seed, dev, results):
     return errs
 
 
-def hold(f, kern, plain, packed, cfg, scan, what, errs):
+def hold(f, kern, plain, packed, cfg, scan, what, errs, wide=None):
     """One decide through the kernel and the plain version: bit-equal
-    responses and tables, or the run fails."""
+    responses and tables, or the run fails. An interned staging (`wide` its
+    wide window) is also held to the compact kernel on the same window,
+    from the same table."""
+    twin = kern.clone() if f == dk.INTERNED else None
     out_k = dk.decide_cuda(f, kern, packed, cfg, NOW, scan)
     out_p = dk.decide_plain(f, plain, packed, cfg, NOW, scan)
     torch.cuda.synchronize()
@@ -456,6 +505,14 @@ def hold(f, kern, plain, packed, cfg, scan, what, errs):
     errs[name] = max(errs.get(name, 0), max_abs_err(out_k, out_p), max_abs_err(kern, plain))
     check(torch.equal(out_k, out_p), f"{what}: responses differ")
     check(torch.equal(kern, plain), f"{what}: tables differ")
+    if twin is not None:
+        c = dk.compact_window(wide)
+        check(c is not None, f"{what}: not compact-eligible")
+        out_c = dk.decide_cuda(dk.COMPACT, twin, torch.from_numpy(c).to(kern.device), None,
+                               NOW, scan)
+        check(torch.equal(out_k, out_c) and torch.equal(kern, twin),
+              f"{what}: the interned kernel and the compact kernel differ")
+        del twin
 
 
 def last_row_window(rng, kern, fmt, width, writer=True):
@@ -479,13 +536,16 @@ def edge_cases(kern, plain, dev, errs):
     CPU, now kernel against plain on the card: a slot past the table (the
     gather clamps, the store drops), int64 wraparound, negative durations,
     a sticky status past i32, algorithm 7, padding between live lanes; a
-    lean window of 128 configs, whose ids set the lane word's sign bit; and
-    lanes past the table beside the lane that writes row C-1, in one window
-    of 8192 lanes and in scan groups (K = 4, W = 64; one window without
-    the writer), wide, compact and lean; a wide scan group of token and
-    leaky herds on live rows with a negative duration; and scans the engine
-    never sends: lean K = 40 and compact K = 32 at W = 256 (chunks of whole
-    windows), wide K = 3 at W = 8192 (a window a launch)."""
+    lean window of 128 configs, whose ids set the lane word's sign bit; an
+    interned window of 256 configs (id 255) with lanes past the table beside
+    lanes on its last rows; and lanes past the table beside the lane that
+    writes row C-1, in one window of 8192 lanes and in scan groups (K = 4,
+    W = 64; one window without the writer), every format; a wide scan group
+    of token and leaky herds on live rows with a negative duration; and
+    scans the engine never sends: lean K = 40 at W = 64, compact K = 32 and
+    interned K = 33 at W = 256 (chunks of whole windows), wide K = 3 at
+    W = 8192 (a window a launch). Every interned case is also held to the compact
+    kernel on the same window."""
     C = kern.shape[0]
     big = np.iinfo(np.int64).max
     for r, v in {0: [0, 10, 4, 5, big - 3, NOW + 1000, 0, 0],
@@ -504,11 +564,22 @@ def edge_cases(kern, plain, dev, errs):
     lean[1] = 1
     lean[2] = np.arange(dk.LEAN_MAX_CFG) + 1
     lean[3] = 60_000
-    for fmt, p in (("wide", wide), ("lean", lean)):
+    # interned: 256 configs (the last id 255), lanes clamped past the table
+    # beside lanes on its last rows
+    interned = np.zeros((9, dk.INTERN_MAX_CFG), np.int64)
+    interned[0] = np.arange(dk.INTERN_MAX_CFG) + (C - dk.INTERN_MAX_CFG - 1)
+    interned[0, -3:] = [C + 5, -1, C]
+    interned[1] = np.arange(dk.INTERN_MAX_CFG) % 4
+    interned[2] = np.arange(dk.INTERN_MAX_CFG) + 1
+    interned[3] = 60_000
+    interned[4] = np.arange(dk.INTERN_MAX_CFG) % 2
+    for fmt, p in (("wide", wide), ("lean", lean), ("interned", interned)):
         packed, cfg = staged(fmt, p, C, dev)
         if fmt == "lean":
             check(bool((packed < 0).any()), "lean edge window sets no sign bit")
-        hold(FORMATS[fmt], kern, plain, packed, cfg, False, f"{fmt} edge lanes", errs)
+        if fmt == "interned":
+            check(int(((packed[1] >> 23) & 0xFF).max()) == 255, "no interned config id 255")
+        hold(FORMATS[fmt], kern, plain, packed, cfg, False, f"{fmt} edge lanes", errs, p)
     rng = np.random.default_rng(99)
     row = torch.tensor([0, 10, 4, 60_000, NOW - 5, NOW + 60_000, 0, 3], device=dev)
     for fmt in FORMATS:
@@ -516,7 +587,7 @@ def edge_cases(kern, plain, dev, errs):
         wide = last_row_window(rng, kern, fmt, WINDOW)
         packed, cfg = staged(fmt, wide, C, dev)
         hold(FORMATS[fmt], kern, plain, packed, cfg, False,
-             f"{fmt} row C-1 written beside lanes past the table", errs)
+             f"{fmt} row C-1 written beside lanes past the table", errs, wide)
         kern[C - 1] = plain[C - 1] = row
         pool = rng.choice(C - 1, 256, replace=False)
         group = np.stack([last_row_window(rng, kern, fmt, 64, writer=w != 2)
@@ -526,7 +597,7 @@ def edge_cases(kern, plain, dev, errs):
             group[w, 0, live] = rng.choice(pool, int(live.sum()), replace=False)
         packed, cfg = staged(fmt, group, C, dev)
         hold(FORMATS[fmt], kern, plain, packed, cfg, True,
-             f"{fmt} scan, row C-1 written beside lanes past the table", errs)
+             f"{fmt} scan, row C-1 written beside lanes past the table", errs, group)
     # a herd on live rows whose duration is negative: the first deduct leaves
     # each row expired, so the scan's run of plain requests must stop there
     rows = rng.choice(C - 1, 2, replace=False)
@@ -541,13 +612,16 @@ def edge_cases(kern, plain, dev, errs):
     # scans the engine never sends, which the kernel runs in chunks of whole
     # windows (more than 32 windows; a staging past shared memory) or as one
     # window launch a window (a window past shared memory); windows share rows
-    for fmt, k, width in (("lean", 40, 64), ("compact", 32, 256), ("wide", 3, WINDOW)):
+    for fmt, k, width in (("lean", 40, 64), ("compact", 32, 256), ("wide", 3, WINDOW),
+                          ("interned", 33, 256)):
         pool = rng.choice(C - 1, 2 * width, replace=False)
         group = np.stack([stimulus(rng, kern, width, fmt, slots=pool) for _ in range(k)])
         packed, cfg = staged(fmt, group, C, dev)
-        hold(FORMATS[fmt], kern, plain, packed, cfg, True, f"{fmt} scan K={k} W={width}", errs)
+        hold(FORMATS[fmt], kern, plain, packed, cfg, True, f"{fmt} scan K={k} W={width}", errs,
+             group)
     log("  edge lanes (clamp, wraparound, negative durations, i32 status, "
-        "algorithm 7, lean sign bit; row C-1 written beside lanes past the table, "
+        "algorithm 7, lean sign bit, interned config id 255; row C-1 written beside "
+        "lanes past the table, "
         "one window and scan; herds on a negative duration; scans in chunks and "
         "window by window): bit-equal")
 
@@ -570,7 +644,7 @@ def sweep(rng, kern, plain, dev, errs):
         for what, v, width in cases:
             check(lib.decide_tune(v if what == "window" else 0,
                                   v if what == "scan" else 0) == 0, "decide_tune refused")
-            for fmt in FORMATS:
+            for fmt in ENGINE_FORMATS:
                 f = FORMATS[fmt]
                 scan = what == "scan"
 
@@ -606,15 +680,15 @@ def sweep(rng, kern, plain, dev, errs):
 
 # ----------------------------------------------------------------- phase 3
 
-def request_stream(seed, n_windows):
-    """Client batches of WINDOW requests over N_KEYS Zipf(1.1) keys: 80%
+def request_stream(seed, n_windows, width=None):
+    """Client batches of `width` requests over N_KEYS Zipf(1.1) keys: 80%
     token / 20% leaky keys with per-key limits and durations. Batches come
     from three kinds of client, in turn: of every ten batches six send
     hits = 1 only (the lean format), three send hits of 2-5 on a tenth of
     their requests (compact), and one also puts a tenth on a gregorian
     calendar (wide) — about 1% of all requests. Returns the batches and
     each key's (algorithm, limit, duration)."""
-    width, n_keys = WINDOW, N_KEYS
+    width, n_keys = width or WINDOW, N_KEYS
     rng = np.random.default_rng(seed + 1)
     p = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64) ** 1.1
     p /= p.sum()
@@ -769,7 +843,7 @@ def record_launches(gpu):
         live = (s >= 0).sum(1)
         _, per_row = np.unique(np.minimum(s[s >= 0], C - 1), return_counts=True)
         kept = [g["fmt"] for g in mix["captured"]]
-        want = any(kept.count(f) < CAPTURE_GROUPS for f in FORMATS)
+        want = any(kept.count(f) < CAPTURE_GROUPS for f in ENGINE_FORMATS)
         if want:  # the rows as they stand before the launch
             slots = np.unique(np.minimum(s[s >= 0], C - 1))
             rows = gpu.state[torch.from_numpy(slots).to(gpu.state.device)].cpu()
@@ -2360,6 +2434,459 @@ def phase_persistence(seed, dev, results):
     tlog(f"  phase 7 in {time.perf_counter() - t0:.1f} s")
     return launches
 
+# ----------------------------------------------------------------- phase 8
+
+PROBE_W = (64, 1024, WINDOW)  # 8a's probe widths: the engine's buckets
+PROBE_SMALL_C = (5, 16)  # wrapped and repeated candidates
+SOLID = 4096  # 8a's region filled solid, its first half stamped this batch
+DEVDIR_WINDOWS = PIPE_WINDOWS  # 8b: phase 3's first 24 windows, 196,608 requests
+PRESSURE_WIDTH = 256  # 8c's windows
+# 8c's (positions, windows): the 65,536 the device directory was sized at,
+# about a third full on this stream, and 8,192, full, where claims evict
+PRESSURE_RUNS = ((65_536, 320), (8_192, 80))
+INTERNED_WINDOWS = 8  # 8d: phase 3's first 8 windows as wire columns
+CONTENTION = "device directory contention: probe window exhausted after retries"
+
+
+def devdir_columns(seed, C, now, dev):
+    """fps and touch i64[C] made on the card from `seed`: about half the
+    positions occupied, each by a key whose probe window holds it (so a
+    probe of that key matches), stamps below `now`, and a region of SOLID positions
+    (fewer when C is smaller) every one occupied, its first half stamped
+    `now`. Returns fps, touch and the region's positions (host)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    def keys_at(pos):
+        # a key whose probe starts 0-3 positions before `pos`, as a probe
+        # would have placed it
+        back = torch.randint(0, 4, pos.shape, generator=g, device=dev)
+        span = torch.randint(1, 1 << 38, pos.shape, generator=g, device=dev)
+        return (pos - back) % C + C * span
+
+    occ = torch.rand(C, generator=g, device=dev) < 0.5
+    fps = keys_at(torch.arange(C, device=dev)) * occ
+    touch = torch.randint(0, now, (C,), generator=g, device=dev)
+    n = min(C, SOLID)
+    lo = int(torch.randint(0, C, (1,), generator=g, device=dev))
+    solid = (lo + torch.arange(n, device=dev)) % C
+    fps[solid] = keys_at(solid)
+    touch[solid[: n // 2]] = now
+    return fps, touch, solid.cpu().numpy()
+
+
+def probe_hashes(rng, fps, solid, W):
+    """i64[W] probe hashes on the card: a fifth each of matches of occupied
+    positions, new keys (first empties), keys based in the solid region
+    (evictions; no victim where all 16 candidates lie in its stamped half),
+    distinct keys of one base (in-batch contention), and padding or new
+    keys."""
+    C = fps.shape[0]
+    kind = rng.integers(0, 5, W)
+    pos = torch.from_numpy(rng.integers(0, C, 4 * W)).to(fps.device)
+    live = fps[pos].cpu().numpy()
+    live = live[live != 0]
+    h = rng.integers(1, 1 << 62, W)
+    span = 1 << 38  # C * span stays below 2^63 at C = 10,000,001
+    for k, vals in ((0, lambda n: rng.choice(live, n)),
+                    (2, lambda n: rng.choice(solid, n) + C * rng.integers(1, span, n)),
+                    (3, lambda n: int(rng.integers(0, C)) + C * rng.integers(1, span, n))):
+        m = kind == k
+        if m.any() and (k != 0 or live.size):
+            h[m] = vals(int(m.sum()))
+    h[(kind == 4) & (rng.random(W) < 0.5)] = 0
+    return torch.from_numpy(h.astype(np.int64)).to(fps.device)
+
+
+def probe_bound(fps_before, h, won, evict, staged):
+    """The probe's bound for one call, as it is timed: the hashes read, the
+    outputs written (slot, fresh and retry, and the staging's rows 0 and 8
+    when `staged`), the 16 candidate fingerprints of each active lane and a
+    fingerprint a winner; with eviction also the 16 candidate stamps of each
+    lane with no match and no empty, a stamp a match and a stamp a winner
+    (this call's data, not the most it could need; the kernel's own scratch
+    is not counted). Bytes bind."""
+    C, W = fps_before.shape[0], h.shape[0]
+    cand = fps_before[ddk._candidates(C, h)]
+    active = h != 0
+    matched = ((cand == h[:, None]) & active[:, None]).any(1)
+    victim = active & ~matched & ~(cand == 0).any(1)
+    n_bytes = (W * (8 + 4 + 1 + 1 + (16 if staged else 0)) + int(active.sum()) * 128
+               + int(won) * 8)
+    if evict:
+        n_bytes += int(victim.sum()) * 128 + int(matched.sum()) * 8 + int(won) * 8
+    b_ms, b_by = bound_ms(n_bytes, int(active.sum()) * ddk.PROBE_DEPTH * 4)
+    return dict(bytes=n_bytes, bound_ms=b_ms, bound_by=b_by, active=int(active.sum()),
+                matched=int(matched.sum()), victim_lanes=int(victim.sum()))
+
+
+def hold_probe(fk, tk, fp, tp, h, seq, evict, what, errs):
+    """One probe through the kernel (with a staging) and the plain version
+    on twin columns: slot, fresh, retry, both columns and the staging's
+    rows 0 and 8 bit-equal, or the run fails. Returns the winners."""
+    name = "probe_assign_evict" if evict else "probe_assign"
+    W = h.shape[0]
+    if evict:
+        pk = torch.zeros((9, W), dtype=torch.int64, device=h.device)
+        got = ddk.probe_cuda(fk, tk, h, seq, pk)
+        want = ddk.probe_assign_evict_plain(fp, tp, h, seq)
+        check(torch.equal(pk[0], want[0].long()) and torch.equal(pk[8], want[1].long()),
+              f"{what}: the staging's slot and fresh rows differ")
+    else:
+        got = ddk.probe_cuda(fk, None, h, seq)[:2]
+        want = ddk.probe_assign_plain(fp, h)
+    torch.cuda.synchronize()
+    errs[name] = max(errs.get(name, 0), max_abs_err(fk, fp),
+                     *(max_abs_err(a, b) for a, b in zip(got, want)),
+                     max_abs_err(tk, tp) if evict else 0)
+    for a, b, field in zip(got, want, ("slot", "fresh", "retry")):
+        check(torch.equal(a, b), f"{what}: {field} differs")
+    check(torch.equal(fk, fp), f"{what}: fingerprints differ")
+    check(not evict or torch.equal(tk, tp), f"{what}: stamps differ")
+    return int(want[1].sum())
+
+
+def devdir_kernels(seed, dev, errs, results):
+    """8a: the probe (with and without eviction) and the sweep against their
+    plain versions, bit-equal, then timed."""
+    rng = np.random.default_rng(seed + 8)
+    recs = []
+    seq = 1000
+    for C in (CAPACITY, *PROBE_SMALL_C):
+        fk, tk, solid = devdir_columns(seed, C, seq + 1, dev)
+        fp, tp = fk.clone(), tk.clone()
+        for W in PROBE_W if C == CAPACITY else (64, 1024):
+            for evict in (True, False):
+                name = "probe_assign_evict" if evict else "probe_assign"
+                seq += 1
+                h = probe_hashes(rng, fk, solid, W)
+                before = fk.clone() if C == CAPACITY else None
+                won = hold_probe(fk, tk, fp, tp, h, seq, evict,
+                                 f"{name} C={C} W={W}", errs)
+                if C != CAPACITY:
+                    continue
+                bound = probe_bound(before, h, won, evict, staged=evict)  # as run_k runs
+                del before
+                hs = [probe_hashes(rng, fk, solid, W) for _ in range(16)]
+                pk = torch.zeros((9, W), dtype=torch.int64, device=dev)
+                base = seq
+
+                def run_k(i):
+                    if evict:
+                        ddk.probe_cuda(fk, tk, hs[i % 16], base + 1 + i, pk)
+                    else:
+                        ddk.probe_cuda(fk, None, hs[i % 16], 0)
+
+                def run_p(i):
+                    if evict:
+                        ddk.probe_assign_evict_plain(fp, tp, hs[i % 16], base + 1 + i)
+                    else:
+                        ddk.probe_assign_plain(fp, hs[i % 16])
+
+                call_ms = event_ms(run_k, 64)
+                ms = profiled_ms(run_k, 32, "probe_", per_call=True)
+                plain_ms = event_ms(run_p, 8)
+                seq = base + 200
+                fp.copy_(fk)  # the timing runs moved the two apart
+                tp.copy_(tk)
+                rec = dict(kernel=name, C=C, W=W, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           winners=won, **bound)
+                recs.append(rec)
+                tlog(f"  {name:18s} C={C} W={W:5d}: bit-equal ({bound['active']} active, "
+                     f"{bound['matched']} matched, {won} claims won, {bound['victim_lanes']} "
+                     f"lanes with neither match nor empty); kernel {fms(ms)} ms on the device (3 "
+                     f"launches), {call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms; "
+                     f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+        log(f"  probe at C={C}: every width bit-equal, with and without eviction")
+        del fk, tk, fp, tp
+    # the sweep, on a populated table
+    table = populate_table(CAPACITY, seed, dev)
+    fk, _tk, _solid = devdir_columns(seed + 1, CAPACITY, NOW, dev)
+    fp = fk.clone()
+    ddk.refresh_cuda(fk, table, NOW)
+    ddk.refresh_vacancies_plain(fp, table, NOW)
+    torch.cuda.synchronize()
+    errs["refresh_vacancies"] = max_abs_err(fk, fp)
+    check(torch.equal(fk, fp), "refresh_vacancies: fingerprints differ")
+    cleared = int((fp == 0).sum())
+    # every timed sweep writes the fingerprint of each dead row again
+    dead = int(((table[:, dk.ROW_ALGO] < 0) | (NOW > table[:, dk.ROW_EXPIRE])).sum())
+    ms = profiled_ms(lambda i: ddk.refresh_cuda(fk, table, NOW), 16, "refresh_kernel")
+    call_ms = event_ms(lambda i: ddk.refresh_cuda(fk, table, NOW), 32)
+    plain_ms = event_ms(lambda i: ddk.refresh_vacancies_plain(fp, table, NOW), 8)
+    # both 32-byte sectors of each 64-byte row are read; fps is only written
+    n_bytes = CAPACITY * 64 + dead * 8
+    b_ms, b_by = bound_ms(n_bytes, CAPACITY * 4)
+    recs.append(dict(kernel="refresh_vacancies", C=CAPACITY, W=None, ms=ms, call_ms=call_ms,
+                     plain_ms=plain_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
+                     cleared=cleared, dead_rows=dead))
+    tlog(f"  refresh_vacancies C={CAPACITY}: bit-equal ({cleared} fingerprints 0 after, "
+         f"{dead} rows vacant or expired); "
+         f"kernel {fms(ms)} ms on the device, {call_ms:.4f} ms per wrapper call; plain "
+         f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+    lib_ms = profiled_ms(lambda i: torch.count_nonzero(fk), 16)
+    lib_call = event_ms(lambda i: torch.count_nonzero(fk), 32)
+    results["key_count_library"] = dict(call="torch.count_nonzero", C=CAPACITY, ms=lib_ms,
+                                        call_ms=lib_call)
+    tlog(f"  key_count's torch.count_nonzero over {CAPACITY} fingerprints: {fms(lib_ms)} ms "
+         f"on the device, {lib_call:.4f} ms per call")
+    del table, fk, fp
+    torch.cuda.empty_cache()
+    return recs
+
+
+def counted_dispatch(eng, tally, twin=False):
+    """Wrap a DevDirEngine's dispatch: retry lanes (and, on the CPU twin,
+    evictions: fresh claims of positions whose fingerprint was not 0)."""
+    def dispatch(up, now_ms, _fn=eng._dispatch):
+        before = eng.fps.clone() if twin else None
+        out, retry = _fn(up, now_ms)
+        tally["dispatches"] += 1
+        tally["retry_lanes"] += int(retry.sum())
+        if twin:
+            fresh = up[8] != 0
+            slots = torch.from_numpy(up[0][fresh])
+            tally["evictions"] += int((before[slots] != 0).sum())
+        return out, retry
+
+    eng._dispatch = dispatch
+
+
+def devdir_engine(seed, dev, results):
+    """8b: DevDirEngine at full width on phase 3's first windows, against a
+    CPU twin and the host-directory Engine on the card."""
+    batches, _ = request_stream(seed, DEVDIR_WINDOWS)
+    gpu = DevDirEngine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    cpu = DevDirEngine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    host = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    for e in (gpu, cpu, host):
+        e.warmup()
+    tally = {"dispatches": 0, "retry_lanes": 0, "evictions": 0}
+    counted_dispatch(gpu, tally)
+    secs = {"card": 0.0, "cpu": 0.0, "host_directory": 0.0}
+    contention = 0
+    for i, (_keys, batch) in enumerate(batches):
+        now = NOW + i * 50
+        got = {}
+        for name, e in (("card", gpu), ("cpu", cpu), ("host_directory", host)):
+            t = time.perf_counter()
+            got[name] = resp_tuples(e.get_rate_limits(batch, now_ms=now))
+            secs[name] += time.perf_counter() - t
+        check(got["card"] == got["cpu"], f"8b window {i}: card and CPU twin answer differently")
+        for a, b in zip(got["card"], got["host_directory"]):
+            if a[4] == CONTENTION:
+                contention += 1
+            else:
+                check(a == b, f"8b window {i}: the device and host directories answer "
+                              f"differently: {a} against {b}")
+    check(torch.equal(gpu.fps.cpu(), cpu.fps) and torch.equal(gpu.touch.cpu(), cpu.touch),
+          "8b: the directories' columns differ")
+    check(torch.equal(gpu.state.cpu(), cpu.state), "8b: the tables differ")
+    gs, cs = gpu.stats.as_dict(), cpu.stats.as_dict()
+    for c in ("requests", "batches", "rounds", "over_limit", "errors"):
+        check(gs[c] == cs[c], f"8b: EngineStats.{c} differs: card {gs[c]}, CPU {cs[c]}")
+    n = sum(len(b) for _, b in batches)
+    rates = {k: n / v for k, v in secs.items()}
+    stage_s = {s: ns / 1e9 for s, ns in gpu.stats.stage_ns.items()}
+    rec = dict(requests=n, windows=len(batches), decisions_per_s=rates, seconds=secs,
+               stage_s=stage_s, rounds=gs["rounds"], exhausted=gs["errors"],
+               contention_answers=contention, keys=gpu.key_count(), **tally)
+    results["devdir_engine"] = rec
+    tlog(f"  8b: {n:,} requests: DevDirEngine on the card {rates['card']:,.0f} decisions/s, "
+         f"its CPU twin {rates['cpu']:,.0f}/s, the host-directory Engine on the card "
+         f"{rates['host_directory']:,.0f}/s; responses, columns, table and stats equal to "
+         f"the twin's; equal to the host directory's on every lane but the {contention} "
+         f"answered with the contention error")
+    tlog(f"  8b: {gs['rounds']} rounds in {tally['dispatches']} dispatches, "
+         f"{tally['retry_lanes']} retry lanes, {gs['errors']} lanes exhausted; "
+         f"{rec['keys']:,} fingerprints held; stage seconds "
+         + ", ".join(f"{s} {v:.3f}" for s, v in stage_s.items()))
+    del gpu, cpu, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def devdir_pressure(seed, dev, capacity, n_windows, results):
+    """8c: a small DevDirEngine on the card against its CPU twin on windows
+    of PRESSURE_WIDTH requests, evictions and sweeps included."""
+    batches, _ = request_stream(seed, n_windows, PRESSURE_WIDTH)
+    gpu = DevDirEngine(device=dev, capacity=capacity, min_width=64, max_width=PRESSURE_WIDTH)
+    cpu = DevDirEngine(device="cpu", capacity=capacity, min_width=64, max_width=PRESSURE_WIDTH)
+    gpu.warmup()
+    cpu.warmup()
+    tally = {"dispatches": 0, "retry_lanes": 0, "evictions": 0}
+    twin_tally = dict(tally)
+    counted_dispatch(gpu, tally)
+    counted_dispatch(cpu, twin_tally, twin=True)
+    sweeps0 = ddk.launch_counts["refresh_vacancies"]
+    gpu_s = 0.0
+    for i, (_keys, batch) in enumerate(batches):
+        now = NOW + i * 50
+        t = time.perf_counter()
+        got = gpu.get_rate_limits(batch, now_ms=now)
+        gpu_s += time.perf_counter() - t
+        check(resp_tuples(got) == resp_tuples(cpu.get_rate_limits(batch, now_ms=now)),
+              f"8c window {i}: card and CPU twin answer differently")
+    check(torch.equal(gpu.fps.cpu(), cpu.fps) and torch.equal(gpu.touch.cpu(), cpu.touch),
+          "8c: the directories' columns differ")
+    check(torch.equal(gpu.state.cpu(), cpu.state), "8c: the tables differ")
+    sweeps = ddk.launch_counts["refresh_vacancies"] - sweeps0
+    rounds, exhausted = gpu.stats.rounds, gpu.stats.errors
+    check(rounds == cpu.stats.rounds and exhausted == cpu.stats.errors,
+          "8c: the rounds or the exhausted lanes differ")
+    check(tally["retry_lanes"] == twin_tally["retry_lanes"], "8c: the retry lanes differ")
+    check(sweeps > 0, "8c: no sweep ran")
+    n = sum(len(b) for _, b in batches)
+    rec = dict(requests=n, windows=len(batches), capacity=capacity, rounds=rounds,
+               evictions=twin_tally["evictions"], retry_lanes=tally["retry_lanes"],
+               exhausted=exhausted, sweeps=sweeps, decisions_per_s=n / gpu_s)
+    results.setdefault("devdir_pressure", []).append(rec)
+    tlog(f"  8c: {n:,} requests at {capacity} positions, bit-equal to the twin: "
+         f"{rounds} rounds, {rec['evictions']} evictions, {rec['retry_lanes']} retry lanes, "
+         f"{exhausted} lanes exhausted, {sweeps} sweeps; {rec['decisions_per_s']:,.0f} "
+         f"decisions/s on the card")
+    del gpu, cpu
+
+
+class InternedEngine(Engine):
+    """The Engine with its one-window and scan dispatches shipping the
+    interned format whenever a window is eligible (the Engine of either
+    package ships lean, compact or wide; nothing there ships interned).
+    8d's leftover tails run through it."""
+
+    def _dispatch_staged(self, packed, now_ms):
+        iw = dk.intern_window(packed)
+        if iw is None:
+            return super()._dispatch_staged(packed, now_ms)
+        return dk.decide_packed_interned(self.state, self._up(iw[0]), self._up(iw[1]),
+                                         now_ms), now_ms
+
+    def _dispatch_scan_staged(self, stacked, now_ms):
+        iw = dk.intern_window(stacked)
+        if iw is None:
+            return super()._dispatch_scan_staged(stacked, now_ms)
+        return dk.decide_scan_packed_interned(self.state, self._up(iw[0]), self._up(iw[1]),
+                                              now_ms), now_ms
+
+
+def prepped_window(eng, reqs, now, istate, tally):
+    """One window of wire columns: round 0 through the native prep (interned
+    when `istate` is given, re-prepped through prep_pack_columnar on a
+    config overflow; else columnar with the compact kernel), its injects
+    first; the leftovers through get_rate_limits, in order. Returns the
+    answers as response tuples."""
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.models.prep import bucket_width
+
+    n = len(reqs)
+    cols = columnar_cols(reqs)
+    W = bucket_width(n, eng.min_width, eng.max_width)
+    out_rows = None
+    with eng._lock:
+        if istate is not None:
+            iw = np.empty((2, W), np.int32)
+            n0, lane, left, inj = native.prep_pack_interned(
+                eng.directory, *cols, COL_SLOW, iw, istate, inject=eng._inject_rows_out())
+            check(n0 >= 0 or n0 == native.PREP_CFG_OVERFLOW,
+                  f"prep_pack_interned refused a window: {n0}")
+            if n0 == native.PREP_CFG_OVERFLOW:
+                tally["overflows"] += 1
+            else:
+                eng._apply_inject_rows(inj)
+                out = dk.decide_packed_interned(eng.state, eng._up(iw), eng._up(istate.cfg), now)
+                out_rows = dk.widen_compact_out(out.cpu().numpy(), now)
+        if out_rows is None:
+            packed = np.zeros((9, W), np.int64)
+            n0, lane, left, inj = native.prep_pack_columnar(
+                eng.directory, *cols, COL_SLOW, packed, eng._inject_rows_out())
+            check(n0 >= 0, f"prep_pack_columnar refused a window: {n0}")
+            eng._apply_inject_rows(inj)
+            if istate is not None:
+                out_rows = eng._fetch_staged(eng._dispatch_staged(packed, now))
+            else:
+                c = dk.compact_window(packed)
+                check(c is not None, "8d: a columnar window is not compact-eligible")
+                out_rows = dk.widen_compact_out(
+                    dk.decide_packed_compact(eng.state, eng._up(c), now).cpu().numpy(), now)
+    answers = [None] * n
+    for j, i in enumerate(lane.tolist()):
+        answers[i] = (int(out_rows[0, j]), int(out_rows[1, j]), int(out_rows[2, j]),
+                      int(out_rows[3, j]), "")
+    tally["lanes"] += n0
+    tally["leftover"] += len(left)
+    if len(left):
+        idx = left.tolist()
+        for i, r in zip(idx, eng.get_rate_limits([reqs[i] for i in idx], now_ms=now)):
+            answers[i] = resp_tuples([r])[0]
+    return answers
+
+
+def devdir_interned(seed, dev, results):
+    """8d: phase 3's first windows as wire columns through the interned prep
+    and kernel on the card, against a CPU twin and the columnar prep with
+    the compact kernel on a second card table."""
+    from gubernator_tpu_torch import native
+
+    batches, _ = request_stream(seed, INTERNED_WINDOWS)
+    card = InternedEngine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    twin = InternedEngine(device="cpu", capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    compact = Engine(device=dev, capacity=CAPACITY, min_width=64, max_width=WINDOW)
+    states = (native.InternPrepState(), native.InternPrepState())
+    tallies = [{"lanes": 0, "leftover": 0, "overflows": 0} for _ in range(3)]
+    secs = [0.0, 0.0, 0.0]
+    for i, (_keys, batch) in enumerate(batches):
+        now = NOW + i * 50
+        got = []
+        for k, (eng, st) in enumerate(((card, states[0]), (twin, states[1]), (compact, None))):
+            t = time.perf_counter()
+            got.append(prepped_window(eng, batch, now, st, tallies[k]))
+            secs[k] += time.perf_counter() - t
+        check(got[0] == got[1], f"8d window {i}: the card's interned path and its twin differ")
+        check(got[0] == got[2], f"8d window {i}: the interned and the compact paths differ")
+    check(torch.equal(card.state, compact.state), "8d: the interned and compact tables differ")
+    check(torch.equal(card.state.cpu(), twin.state), "8d: the card's and the twin's tables differ")
+    check(all((t["lanes"], t["leftover"]) == (tallies[2]["lanes"], tallies[2]["leftover"])
+              for t in tallies), f"8d: the preps packed different lanes: {tallies}")
+    n = sum(len(b) for _, b in batches)
+    rec = dict(requests=n, windows=len(batches), interned_lanes=tallies[0]["lanes"],
+               leftover=tallies[0]["leftover"], overflows=tallies[0]["overflows"],
+               n_cfg=states[0].n_cfg, decisions_per_s=[n / s for s in secs])
+    results["devdir_interned"] = rec
+    tlog(f"  8d: {n:,} requests as wire columns, {rec['interned_lanes']:,} through "
+         f"prep_pack_interned and decide_packed_interned ({rec['n_cfg']} configs, "
+         f"{rec['overflows']} overflows), {rec['leftover']:,} leftovers through the interned "
+         f"engine tail; answers and tables equal to the CPU twin's and to the columnar + "
+         f"compact path's; decisions/s card {rec['decisions_per_s'][0]:,.0f}, twin "
+         f"{rec['decisions_per_s'][1]:,.0f}, compact path {rec['decisions_per_s'][2]:,.0f}")
+    del card, twin, compact
+
+
+def phase_devdir(seed, dev, results):
+    log(f"== phase 8: the device directory: probe and sweep kernels vs their plain "
+        f"versions at C={CAPACITY}, then DevDirEngine(capacity={CAPACITY}) on "
+        f"{DEVDIR_WINDOWS} windows, eviction pressure at "
+        f"{' and '.join(str(c) for c, _ in PRESSURE_RUNS)} positions, and the interned "
+        f"path on {INTERNED_WINDOWS} windows")
+    t0 = time.perf_counter()
+    errs = {}
+    recs = devdir_kernels(seed, dev, errs, results)
+    results["devdir_kernels"] = recs
+    dk.reset_launch_counts()
+    ddk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    devdir_engine(seed, dev, results)
+    for capacity, n_windows in PRESSURE_RUNS:
+        devdir_pressure(seed, dev, capacity, n_windows, results)
+    devdir_interned(seed, dev, results)
+    launches = {**dk.launch_counts, **ddk.launch_counts, **rowk.launch_counts}
+    for name in ("probe_assign_evict", "refresh_vacancies", "decide_interned",
+                 "decide_scan_interned"):
+        check(launches[name] > 0, f"phase 8 launched no {name}")
+    results["devdir_launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    tlog(f"  phase 8 launches {launches}; phase 8 in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, recs
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2405,6 +2932,7 @@ def main(argv=None) -> int:
     row_errs, row_recs, bump_launches = phase_rows(args.seed, dev, results)
     pipe_launches = phase_pipeline(args.seed, dev, results)
     persist_launches = phase_persistence(args.seed, dev, results)
+    devdir_launches, devdir_errs, devdir_recs = phase_devdir(args.seed, dev, results)
 
     kernels = []
     for name in dk.launch_counts:
@@ -2414,7 +2942,7 @@ def main(argv=None) -> int:
                           and r["width"] == (64 if scan else WINDOW)
                           and r["scan_k"] == (32 if scan else 0))
         n = (eng_launches[name] + py_launches[name] + glob_launches[name]
-             + pipe_launches[name] + persist_launches[name])
+             + pipe_launches[name] + persist_launches[name] + devdir_launches[name])
         check(n > 0, f"{name} was never launched on the main path")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -2445,6 +2973,19 @@ def main(argv=None) -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             library_device_ms=r["library_device_ms"], call_ms=r["call_ms"],
             shape=f"m={r['m']}, {r['form']}"))
+    # the probe as the device-directory engine runs it (eviction on, W = 8192)
+    # and the sweep; probe_assign (eviction off) runs on no engine's path and
+    # is timed in phase 8a only
+    for name in ("probe_assign_evict", "refresh_vacancies"):
+        n = devdir_launches[name]
+        check(n > 0, f"{name} was never launched on the device directory's path")
+        r = next(r for r in devdir_recs if r["kernel"] == name and r["W"] in (None, WINDOW))
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=n, max_abs_err=devdir_errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            library_device_ms=None, call_ms=r["call_ms"],
+            shape=f"C={r['C']}" + (f", W={r['W']}" if r["W"] else "")))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     if args.out:

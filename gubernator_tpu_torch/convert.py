@@ -6,9 +6,11 @@ array, or any array-like) and give the port's tensors, and back, checking
 the layouts both packages share:
 
 - the i64[C, 8] table and the i64[R, S, C, 8] sharded table;
-- a staging buffer: wide i64[.., 9, W], compact i32[.., 5, W], lean
-  i32[.., W] lane words with their i64[128, 4] config table;
-- the GLOBAL sync's GlobalConfig and GlobalMirror.
+- a staging buffer: wide i64[.., 9, W], compact i32[.., 5, W], interned
+  i32[.., 2, W] with its i64[256, 2] config table, lean i32[.., W] lane
+  words with their i64[128, 4] config table;
+- the GLOBAL sync's GlobalConfig and GlobalMirror;
+- a device-directory engine's state (carry_devdir_state).
 
 Nothing here imports JAX: a caller that has jax arrays converts them with
 np.asarray first (or passes them, since np.asarray accepts them).
@@ -19,7 +21,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.ops.decide import COMPACT_ROWS, LEAN_MAX_CFG, TABLE_ROW_FIELDS
+from gubernator_tpu_torch.ops.decide import (
+    COMPACT_ROWS,
+    INTERN_MAX_CFG,
+    INTERN_ROWS,
+    LEAN_MAX_CFG,
+    TABLE_ROW_FIELDS,
+)
 from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, GlobalMirror
 from gubernator_tpu_torch.utils.platform import resolve_device
 
@@ -58,14 +66,20 @@ def table_to_numpy(state: torch.Tensor) -> np.ndarray:
 
 def staging_to_torch(packed, cfg=None, device=None):
     """A staging buffer -> tensor(s). Wide is i64 with 9 rows, compact i32
-    with 5 rows, lean i32 lane words (pass its i64[128, 4] config table as
-    `cfg`; returns (lanes, cfg) then)."""
+    with 5 rows; lean i32 lane words and interned i32 rows (slot, meta) come
+    with their config table as `cfg` (lean i64[128, 4], interned
+    i64[256, 2]) and return (staging, cfg) then."""
     arr = np.asarray(packed)
     if cfg is not None:
         cfg_arr = np.asarray(cfg)
-        if arr.dtype != np.int32 or cfg_arr.shape != (LEAN_MAX_CFG, 4):
+        lean = cfg_arr.shape == (LEAN_MAX_CFG, 4)
+        interned = (cfg_arr.shape == (INTERN_MAX_CFG, 2) and arr.ndim >= 2
+                    and arr.shape[-2] == INTERN_ROWS)
+        if arr.dtype != np.int32 or not (lean or interned):
             raise ValueError("lean staging is i32 lane words plus an "
-                             f"i64[{LEAN_MAX_CFG}, 4] config table")
+                             f"i64[{LEAN_MAX_CFG}, 4] config table; interned "
+                             f"staging i32[.., {INTERN_ROWS}, W] plus an "
+                             f"i64[{INTERN_MAX_CFG}, 2] one")
         return (to_torch(arr, np.int32, device),
                 to_torch(cfg_arr, np.int64, device))
     if arr.dtype == np.int64 and arr.ndim >= 2 and arr.shape[-2] == 9:
@@ -101,3 +115,27 @@ def fields_to_numpy(nt) -> dict:
     or the JAX package's."""
     return {f: to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
             for f, v in nt._asdict().items()}
+
+
+def carry_devdir_state(engine, fps, touch, table, probe_seq: int,
+                       rounds_since_sweep: int) -> None:
+    """Give a port DevDirEngine the state of a JAX package's DevDirEngine:
+    its `fps` and `touch` columns and its table (numpy, or anything
+    np.asarray takes), its `_probe_seq` epoch and its
+    `_rounds_since_sweep` count. The columns are copied into the engine's
+    tensors on its device. From there both engines, given the same
+    requests, continue bit for bit."""
+    C = engine.capacity
+    fps_arr, touch_arr = np.asarray(fps), np.asarray(touch)
+    if fps_arr.shape != (C,) or touch_arr.shape != (C,):
+        raise ValueError(f"fps and touch must be i64[{C}], got {fps_arr.shape} "
+                         f"and {touch_arr.shape}")
+    if np.asarray(table).shape != (C, TABLE_ROW_FIELDS):
+        raise ValueError(f"the table must be i64[{C}, {TABLE_ROW_FIELDS}], got "
+                         f"{np.asarray(table).shape}")
+    with engine._lock:
+        engine.fps.copy_(to_torch(fps_arr, np.int64, engine.device))
+        engine.touch.copy_(to_torch(touch_arr, np.int64, engine.device))
+        engine.state.copy_(table_to_torch(table, engine.device))
+        engine._probe_seq = int(probe_seq)
+        engine._rounds_since_sweep = int(rounds_since_sweep)

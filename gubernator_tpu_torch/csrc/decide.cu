@@ -4,13 +4,16 @@
 // compiles to, as reached through decide_packed (:464), decide_packed_compact
 // (:536), decide_packed_lean (:844) and their scan forms decide_scan_packed
 // (:495), decide_scan_packed_compact (:575) and decide_scan_packed_lean
-// (:872). Their plain PyTorch version is decide() in ops/decide.py of this
-// package; they must agree with it bit for bit on responses and on the table.
+// (:872), and the interned format's decide_packed_interned (:650) and
+// decide_scan_packed_interned (:675). Their plain PyTorch version is decide()
+// in ops/decide.py of this package; they must agree with it bit for bit on
+// responses and on the table. The four staging formats differ only in how a
+// lane is decoded (decode_slot and decode below).
 //
 // What bounds them on an H100: latency, not bytes or operations. Per live
 // lane the work reads one 64-byte row and writes it back, plus the staging
-// (72 B wide, 20 B compact, 4 B lean) and the response (32 B wide, 16 B
-// otherwise): under a microsecond at 3.35 TB/s for 8192 lanes, and ~100
+// (72 B wide, 20 B compact, 8 B interned, 4 B lean) and the response (32 B
+// wide, 16 B otherwise): under a microsecond at 3.35 TB/s for 8192 lanes, and ~100
 // integer operations a lane. What a launch pays instead is a dependent chain
 // of misses (the staging word, then the random row it names), and in a scan
 // the lanes of one row, which must run one after another.
@@ -37,8 +40,8 @@
 // the windows that touch the row, listing the live lanes (padding answers at
 // once), and starts each row toward L2; (c) gives each row's chain a
 // contiguous run; (d) lays every live lane into its chain's run in window
-// order (compact and lean as a 48-byte record with the leaky rates worked
-// out, wide as its position in the staging); (e) one thread a chain loads the
+// order (compact, interned and lean as a 48-byte record with the leaky rates
+// worked out, wide as its position in the staging); (e) one thread a chain loads the
 // row once, runs the lattice for each lane of its run with the row in
 // registers and stores it once, so a group pays one row miss deep, not K.
 // A run of plain requests on a live row (a herd) takes a loop that moves
@@ -78,7 +81,7 @@
 
 namespace {
 
-enum Format : int { WIDE = 0, COMPACT = 1, LEAN = 2 };
+enum Format : int { WIDE = 0, COMPACT = 1, LEAN = 2, INTERNED = 3 };
 
 constexpr int kBehaviorGregorian = 4;
 constexpr int kBehaviorResetRemaining = 8;
@@ -88,6 +91,15 @@ constexpr int kLeanSlotMask = (1 << 24) - 1;
 constexpr int kLeanFreshShift = 24;
 constexpr int kLeanCfgShift = 25;
 constexpr int kLeanMaxCfg = 128;
+// the interned meta word (decide.py:628-633): hits in bits 0-14, algorithm
+// in 15, behavior in 16-21, fresh in 22, the config id from 23
+constexpr int kIntHitsMask = (1 << 15) - 1;
+constexpr int kIntAlgoShift = 15;
+constexpr int kIntBehaviorShift = 16;
+constexpr int kIntFreshShift = 22;
+constexpr int kIntCfgShift = 23;
+constexpr int kInternMaxCfg = 256;
+constexpr int kNumFormats = 4;
 constexpr int kRowFields = 8;
 
 constexpr int kWindowThreads = 64;   // one-window block size (the sweep's winner)
@@ -142,16 +154,22 @@ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a
 
 // Staging bytes of one window of B lanes.
 __host__ __device__ __forceinline__ size_t window_bytes(int fmt, int B) {
-  return static_cast<size_t>(B) * (fmt == WIDE ? 72 : fmt == COMPACT ? 20 : 4);
+  return static_cast<size_t>(B) * (fmt == WIDE ? 72 : fmt == COMPACT ? 20 : fmt == INTERNED ? 8 : 4);
+}
+
+// The rows of one window's staging.
+template <int FMT>
+__host__ __device__ constexpr int staging_rows() {
+  return FMT == WIDE ? 9 : FMT == COMPACT ? 5 : FMT == INTERNED ? 2 : 1;
 }
 
 // The slot of lane b of window k (lean padding -> -1).
 template <int FMT>
 __device__ __forceinline__ int32_t decode_slot(const void* packed, int k, int B, int b) {
-  const int64_t i = static_cast<int64_t>(k) * (FMT == WIDE ? 9 : FMT == COMPACT ? 5 : 1) * B + b;
+  const int64_t i = static_cast<int64_t>(k) * staging_rows<FMT>() * B + b;
   if constexpr (FMT == WIDE) {
     return static_cast<int32_t>(static_cast<const int64_t*>(packed)[i]);
-  } else if constexpr (FMT == COMPACT) {
+  } else if constexpr (FMT == COMPACT || FMT == INTERNED) {
     return static_cast<const int32_t*>(packed)[i];
   } else {
     const int32_t s = static_cast<const int32_t*>(packed)[i] & kLeanSlotMask;
@@ -189,6 +207,22 @@ __device__ __forceinline__ Req decode(const void* packed, const int64_t* cfg,
     r.greg_expire = 0;
     r.greg_interval = 0;
     r.fresh = (meta & kMetaFresh) != 0;
+  } else if constexpr (FMT == INTERNED) {
+    // i32[K, 2, B]: slot, meta + i64[256, 2] config rows of (limit,
+    // duration) (decide.py:650-671); the config id includes the sign bit:
+    // shift, then mask
+    const int32_t* p = static_cast<const int32_t*>(packed) + static_cast<int64_t>(k) * 2 * B + b;
+    const int32_t meta = p[B];
+    const int64_t* c = cfg + ((meta >> kIntCfgShift) & (kInternMaxCfg - 1)) * 2;
+    r.slot = p[0];
+    r.hits = meta & kIntHitsMask;
+    r.limit = c[0];
+    r.duration = c[1];
+    r.algorithm = (meta >> kIntAlgoShift) & 1;
+    r.behavior = (meta >> kIntBehaviorShift) & kMetaBehaviorMask;
+    r.greg_expire = 0;
+    r.greg_interval = 0;
+    r.fresh = ((meta >> kIntFreshShift) & 1) != 0;
   } else {
     // i32[K, B] lane words + i64[128, 4] config rows (decide.py:852-867);
     // the config id includes the sign bit: shift, then mask
@@ -483,7 +517,7 @@ __global__ void decide_kernel_window(int64_t* table, int64_t C,
 
 // ------------------------------------------------------------------- scan
 
-// A live lane of a compact or lean chunk, laid out in its chain's run with
+// A live lane of a compact, interned or lean chunk, laid out in its chain's run with
 // its leaky rates worked out: the chain's thread reads its run in order and
 // no load depends on another. (Wide lanes keep only `at` in the run and read
 // their request from the on-chip staging: a wide record would not fit beside
@@ -498,6 +532,13 @@ constexpr int kAtWindow = 14;  // b < kMaxChunkLanes = 2^14; kk < 32 above it
 constexpr uint32_t kAtLane = (1u << kAtWindow) - 1;
 constexpr uint32_t kAtFresh = 1u << 19, kAtGreg = 1u << 20, kAtReset = 1u << 21;
 constexpr uint16_t kReader = 0xFFFF;  // a live entry past the table, not a hash slot
+
+// The config table a format ships beside its staging: lean's i64[128, 4],
+// interned's i64[256, 2]; none for wide and compact.
+__host__ __device__ __forceinline__ size_t cfg_bytes(int fmt) {
+  return fmt == LEAN ? kLeanMaxCfg * 4 * sizeof(int64_t)
+                     : fmt == INTERNED ? kInternMaxCfg * 2 * sizeof(int64_t) : 0;
+}
 
 // Offsets into a scan block's dynamic shared memory for chunks of `kc`
 // windows of B lanes; every section starts 16-byte aligned.
@@ -515,7 +556,7 @@ struct ScanLayout {
     L.H = H;
     size_t o = 0;
     L.stage = o; o += up16(kc * window_bytes(fmt, B));
-    L.cfg = o; o += fmt == LEAN ? kLeanMaxCfg * 4 * sizeof(int64_t) : 0;
+    L.cfg = o; o += cfg_bytes(fmt);
     L.keys = o; o += up16(H * sizeof(int32_t));
     L.mask = o; o += up16(H * sizeof(uint32_t));
     L.val = o; o += up16(H * sizeof(uint16_t));
@@ -593,7 +634,7 @@ __device__ __forceinline__ Req unrec(const Rec& c) {
   r.algorithm = c.algorithm;
   r.behavior = ((c.at & kAtGreg) ? kBehaviorGregorian : 0) |
                ((c.at & kAtReset) ? kBehaviorResetRemaining : 0);
-  r.greg_expire = 0;  // compact and lean carry none
+  r.greg_expire = 0;  // compact, interned and lean carry none
   r.greg_interval = 0;
   r.fresh = (c.at & kAtFresh) != 0;
   return r;
@@ -624,7 +665,7 @@ decide_kernel_scan(int64_t* table, int64_t C, const void* __restrict__ packed,
   uint16_t* val = reinterpret_cast<uint16_t*>(smem + L.val);     // hash slot -> chain id
   uint32_t* live = reinterpret_cast<uint32_t*>(smem + L.live);   // live lanes, as `at`
   uint16_t* lh = reinterpret_cast<uint16_t*>(smem + L.lh);       // their hash slot / kReader
-  Rec* rec = reinterpret_cast<Rec*>(smem + L.run);               // chains' runs (compact, lean)
+  Rec* rec = reinterpret_cast<Rec*>(smem + L.run);               // chains' runs (not wide)
   uint32_t* order = reinterpret_cast<uint32_t*>(smem + L.run);   // chains' runs (wide)
   uint16_t* chain = reinterpret_cast<uint16_t*>(smem + L.chain); // chain id -> hash slot
   uint16_t* start = reinterpret_cast<uint16_t*>(smem + L.start); // chain id -> its run
@@ -638,7 +679,7 @@ decide_kernel_scan(int64_t* table, int64_t C, const void* __restrict__ packed,
   // lane = kk * B + b, stepped by T without a division a step
   const int dK = T / B, dB = T - dK * B, kk0 = tid / B, b0 = tid - kk0 * B;
 
-  if constexpr (FMT == LEAN) copy_in(scfg, cfg, kLeanMaxCfg * 4 * sizeof(int64_t));
+  if constexpr (FMT == LEAN || FMT == INTERNED) copy_in(scfg, cfg, cfg_bytes(FMT));
   for (int k0 = 0; k0 < K; k0 += kc_max) {
     const int kc = min(kc_max, K - k0);
     const int lanes = kc * B;
@@ -861,7 +902,7 @@ int g_scan_blocks = kScanBlocks;
 std::atomic<long long> g_seq{0};  // launches so far: each takes its own number
 
 constexpr int kMaxDevices = 64;
-size_t g_scan_smem[3][kMaxDevices];  // dynamic shared memory a scan block may take
+size_t g_scan_smem[kNumFormats][kMaxDevices];  // dynamic shared memory a scan block may take
 
 // cudaSetDevice costs a runtime call; the card is almost always current already.
 int set_device(int device) {
@@ -960,6 +1001,8 @@ extern "C" int decide_launch(int device, int fmt, void* table, long long capacit
       return launch<COMPACT>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
     case LEAN:
       return launch<LEAN>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
+    case INTERNED:
+      return launch<INTERNED>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -980,6 +1023,7 @@ extern "C" int decide_scan_chunk(int device, int fmt, int K, int B, int* kc) {
     case WIDE: err = scan_smem_limit<WIDE>(device, &limit); break;
     case COMPACT: err = scan_smem_limit<COMPACT>(device, &limit); break;
     case LEAN: err = scan_smem_limit<LEAN>(device, &limit); break;
+    case INTERNED: err = scan_smem_limit<INTERNED>(device, &limit); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;

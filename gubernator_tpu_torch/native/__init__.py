@@ -13,6 +13,11 @@ a full table included. This module binds the parts the engine uses:
   call over the request objects);
 - prep_pack_columnar: the same pass over the peerlink wire columns, with
   the GIL released;
+- prep_pack_interned and prep_pack_lean: that pass emitting the interned
+  (i32[2, W] + an i64[256, 2] config table) and lean (i32[W] + i64[128, 4])
+  staging formats, their config tables kept across windows in an
+  InternPrepState / LeanPrepState;
+- fingerprint_batch: the device directory's 63-bit key fingerprints;
 - make_key_directory: the engine's factory.
 
 The library is built by g++ at first use into _build/ (ops/_build.py). The
@@ -90,6 +95,34 @@ def load_library() -> ctypes.CDLL:
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
             c.c_int64, c.c_void_p, c.c_int32, c.c_void_p, c.c_void_p,
             c.c_void_p, c.c_void_p, c.c_void_p,
+        ]
+        lib.keydir_intern_max_cfg.restype = c.c_int64
+        lib.keydir_intern_max_cfg.argtypes = []
+        lib.keydir_intern_hash_slots.restype = c.c_int64
+        lib.keydir_intern_hash_slots.argtypes = []
+        lib.keydir_prep_pack_interned.restype = c.c_int32
+        lib.keydir_prep_pack_interned.argtypes = [
+            # kd, n, keys, key_off, name_len, hits, limit, duration,
+            # algorithm, behavior, slow_mask, iw, width, cfg, n_cfg,
+            # cfg_hash, lane_item, leftover, n_leftover_out, inject,
+            # n_inject: 21 parameters
+            c.c_void_p, c.c_int32, c.c_char_p, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_int64, c.c_void_p, c.c_int32, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_void_p,
+        ]
+        lib.keydir_lean_max_cfg.restype = c.c_int64
+        lib.keydir_lean_max_cfg.argtypes = []
+        lib.keydir_lean_hash_slots.restype = c.c_int64
+        lib.keydir_lean_hash_slots.argtypes = []
+        # the same 21 parameters (iw i32[width], cfg i64[128, 4], cfg_hash
+        # i32[512])
+        lib.keydir_prep_pack_lean.restype = c.c_int32
+        lib.keydir_prep_pack_lean.argtypes = list(lib.keydir_prep_pack_interned.argtypes)
+        lib.fnv1a_fingerprint_batch.restype = None
+        lib.fnv1a_fingerprint_batch.argtypes = [
+            c.c_char_p, c.c_void_p, c.c_int32, c.c_void_p,
         ]
         _LIB = lib
         return lib
@@ -214,6 +247,125 @@ def prep_pack_columnar(directory: "NativeKeyDirectory", n: int,
             inject[:int(n_inj[0])])
 
 
+# keydir_prep_pack_interned / _lean: the window needs more distinct configs
+# than the config table holds; the directory and the config state are
+# untouched, and the caller re-preps the window through prep_pack_columnar
+PREP_CFG_OVERFLOW = -3
+# keydir_prep_pack_lean: the directory's capacity exceeds the 24-bit lane
+# field (the caller skipped ops/decide.py lean_capacity_ok); checked before
+# the lookup, so the directory and config state are untouched
+PREP_SLOT_WIDE = -4
+
+
+class InternPrepState:
+    """Caller-owned state of the interned columnar prep, kept across
+    windows: the i64[256, 2] (limit, duration) config table the device
+    receives, its fill count, and the C side's find-or-insert map. The
+    sizes come from the C side's constants."""
+
+    def __init__(self):
+        lib = load_library()
+        self.cfg = np.zeros((lib.keydir_intern_max_cfg(), 2), np.int64)
+        self._n_cfg = np.zeros(1, np.int32)
+        self._hash = np.zeros((lib.keydir_intern_hash_slots(), 2), np.int64)
+
+    @property
+    def n_cfg(self) -> int:
+        return int(self._n_cfg[0])
+
+
+class LeanPrepState:
+    """Caller-owned state of the lean columnar prep: the i64[128, 4]
+    (limit, duration, algorithm, behavior) config table, its fill count,
+    and the C side's find-or-insert map (i32[512] of id + 1)."""
+
+    def __init__(self):
+        lib = load_library()
+        self.cfg = np.zeros((lib.keydir_lean_max_cfg(), 4), np.int64)
+        self._n_cfg = np.zeros(1, np.int32)
+        self._hash = np.zeros(lib.keydir_lean_hash_slots(), np.int32)
+
+    @property
+    def n_cfg(self) -> int:
+        return int(self._n_cfg[0])
+
+
+def _prep_pack_cfg(fn, width: int, directory: "NativeKeyDirectory", n: int,
+                   keys, key_off, name_len, hits, limit, duration,
+                   algorithm, behavior, slow_mask: int, iw: np.ndarray,
+                   state, inject: Optional[np.ndarray] = None):
+    """The call shared by the two config-interning preps: only the C
+    entry point, the staging's width and the state differ. Returns
+    (n0, lane_item, leftover, inject) like prep_pack_columnar."""
+    if iw.dtype != np.int32 or not iw.flags.c_contiguous:
+        raise ValueError(f"iw must be a C-contiguous int32 array, got {iw.dtype}")
+    lane_item = np.empty(width, np.int32)
+    leftover = np.empty(n, np.int32)
+    n_left = np.zeros(1, np.int32)
+    inject = _inject_out(inject, min(n, width))
+    n_inj = np.zeros(1, np.int32)
+    n0 = fn(
+        directory._kd, n, keys,
+        key_off.ctypes.data, name_len.ctypes.data, hits.ctypes.data,
+        limit.ctypes.data, duration.ctypes.data, algorithm.ctypes.data,
+        behavior.ctypes.data, slow_mask, iw.ctypes.data, width,
+        state.cfg.ctypes.data, state._n_cfg.ctypes.data,
+        state._hash.ctypes.data,
+        lane_item.ctypes.data, leftover.ctypes.data, n_left.ctypes.data,
+        inject.ctypes.data, n_inj.ctypes.data,
+    )
+    if n0 < 0:
+        return n0, None, None, inject[:int(n_inj[0])]
+    return (n0, lane_item[:n0], leftover[:int(n_left[0])],
+            inject[:int(n_inj[0])])
+
+
+def prep_pack_interned(directory: "NativeKeyDirectory", n: int,
+                       keys, key_off, name_len, hits, limit, duration,
+                       algorithm, behavior, slow_mask: int,
+                       iw: np.ndarray, state: InternPrepState,
+                       inject: Optional[np.ndarray] = None):
+    """Columnar one-pass prep emitting the interned staging format
+    (ops/decide.py decide_packed_interned): `iw` is i32[2, width], every
+    lane written (no zeroing needed); `state` keeps the config table across
+    windows. Lanes the format cannot carry go to `leftover`; a window that
+    needs more than 256 distinct configs returns PREP_CFG_OVERFLOW with the
+    directory and config state untouched (the caller re-preps that window
+    through prep_pack_columnar). `inject` as in prep_pack_columnar.
+
+    Returns (n0, lane_item, leftover, inject) like prep_pack_columnar."""
+    if iw.ndim != 2 or iw.shape[0] != 2:
+        raise ValueError(f"iw must be i32[2, width], got {iw.shape}")
+    lib = load_library()
+    return _prep_pack_cfg(
+        lib.keydir_prep_pack_interned, iw.shape[1], directory, n, keys,
+        key_off, name_len, hits, limit, duration, algorithm, behavior,
+        slow_mask, iw, state, inject)
+
+
+def prep_pack_lean(directory: "NativeKeyDirectory", n: int,
+                   keys, key_off, name_len, hits, limit, duration,
+                   algorithm, behavior, slow_mask: int,
+                   iw: np.ndarray, state: LeanPrepState,
+                   inject: Optional[np.ndarray] = None):
+    """Columnar one-pass prep emitting the lean staging format
+    (ops/decide.py decide_packed_lean): `iw` is i32[width], one word a
+    lane, every lane written; `state` keeps the config table. Lanes the
+    format cannot carry (hits != 1, out-of-range values, slow-mask
+    behaviors) go to `leftover`; more than 128 distinct configs returns
+    PREP_CFG_OVERFLOW, a directory past 24-bit slots PREP_SLOT_WIDE, each
+    with the directory and config state untouched.
+
+    Returns (n0, lane_item, leftover, inject) like prep_pack_columnar."""
+    if iw.ndim != 1:
+        raise ValueError(f"iw must be i32[width], got {iw.shape}")
+    lib = load_library()
+    return _prep_pack_cfg(
+        lib.keydir_prep_pack_lean, iw.shape[0], directory, n, keys,
+        key_off, name_len, hits, limit, duration, algorithm, behavior,
+        slow_mask, iw, state, inject)
+
+
 def _pack_keys(keys: Sequence[str]) -> Tuple[bytes, np.ndarray]:
     """Concatenate utf-8 keys; offsets[n+1] int64. When the joined text is
     pure ASCII, character counts are byte counts and no per-key encode is
@@ -230,6 +382,16 @@ def _pack_keys(keys: Sequence[str]) -> Tuple[bytes, np.ndarray]:
         lens = np.fromiter(map(len, blobs), np.int64, count=n)
     np.cumsum(lens, out=offsets[1:])
     return data, offsets
+
+
+def fingerprint_batch(keys: Sequence[str]) -> np.ndarray:
+    """i64[n]: the 63-bit nonzero fingerprints of `keys` for the device
+    directory (ops/devdir.py key_fingerprint, in C)."""
+    lib = load_library()
+    data, offsets = _pack_keys(keys)
+    out = np.empty(len(keys), np.int64)
+    lib.fnv1a_fingerprint_batch(data, offsets.ctypes.data, len(keys), out.ctypes.data)
+    return out
 
 
 class NativeKeyDirectory:

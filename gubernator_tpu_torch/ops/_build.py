@@ -41,7 +41,7 @@ from typing import Dict, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decide", "ring", "rows")  # csrc/<name>.cu
+SOURCES = ("decide", "devdir", "ring", "rows")  # csrc/<name>.cu
 NATIVE = ("keydir",)  # native/<name>.cpp
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

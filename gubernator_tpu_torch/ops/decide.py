@@ -6,8 +6,8 @@ requests is one gather of rows, a branchless token/leaky lattice, and one
 scatter of rows back.
 
 Every packed entry point (decide_packed, decide_packed_compact,
-decide_packed_lean and their decide_scan_* forms) takes tensors on either
-device:
+decide_packed_interned, decide_packed_lean and their decide_scan_* forms)
+takes tensors on either device:
 
 - on the CPU it runs the plain PyTorch version, decide() below;
 - on CUDA it launches the hand-written kernels of csrc/decide.cu through
@@ -17,9 +17,9 @@ device:
 Unlike the JAX functions, which return a new table, these update `state` IN
 PLACE and return only the response rows.
 
-The numpy host packers (pack_window, compact_window, lean_window,
-widen_compact_out, ...) are copies of the JAX package's, so both packages
-stage a window identically.
+The numpy host packers (pack_window, compact_window, intern_window,
+InternCache, lean_window, widen_compact_out, ...) are copies of the JAX
+package's, so both packages stage a window identically.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ TABLE_ROW_FIELDS = 8
 # reset_launch_counts() sets them to 0.
 launch_counts: Dict[str, int] = {
     f"decide_{form}{fmt}": 0 for form in ("", "scan_")
-    for fmt in ("wide", "compact", "lean")}
+    for fmt in ("wide", "compact", "lean", "interned")}
 # The same launches by (launch_counts key, K, B): K = 1 for one window.
 launch_shapes: Dict[Tuple[str, int, int], int] = {}
 
@@ -256,12 +256,15 @@ def decide(state: torch.Tensor, reqs: ReqBatch, now_ms) -> RespBatch:
 # (slot, hits, limit, duration, meta), i32[4, B] back with reset as a delta
 # from now (decide.py:518-586). Lean: one i32 lane word per request plus an
 # i64[128, 4] config table of (limit, duration, algorithm, behavior), hits = 1
-# implied, compact response (decide.py:797-883).
+# implied, compact response (decide.py:797-883). Interned: i32[2, B] up (slot
+# and a meta word) plus an i64[256, 2] config table of (limit, duration),
+# compact response (decide.py:619-820).
 
-WIDE, COMPACT, LEAN = 0, 1, 2
+WIDE, COMPACT, LEAN, INTERNED = 0, 1, 2, 3
 # launch_counts' key of each (format, scan)
 _COUNT_NAMES = {(f, scan): f"decide_{'scan_' if scan else ''}{name}"
-                for f, name in ((WIDE, "wide"), (COMPACT, "compact"), (LEAN, "lean"))
+                for f, name in ((WIDE, "wide"), (COMPACT, "compact"), (LEAN, "lean"),
+                                (INTERNED, "interned"))
                 for scan in (False, True)}
 
 COMPACT_ROWS = 5
@@ -275,6 +278,21 @@ _LEAN_SLOT_MASK = (1 << 24) - 1
 _LEAN_PAD = _LEAN_SLOT_MASK  # slot sentinel: capacity must stay below it
 _LEAN_FRESH_SHIFT = 24
 _LEAN_CFG_SHIFT = 25
+
+# The interned meta word (bit 31 clear for every word the packers emit):
+#   [14:0]  hits        (eligibility: 0 <= hits < 2^15)
+#   [15]    algorithm
+#   [21:16] behavior    (6 bits, same mask as compact)
+#   [22]    fresh
+#   [30:23] config id   (eligibility: <= 256 distinct pairs per stack)
+INTERN_ROWS = 2
+INTERN_MAX_CFG = 256
+_INT_HITS_BITS = 15
+_INT_HITS_MAX = (1 << _INT_HITS_BITS) - 1
+_INT_ALGO_SHIFT = 15
+_INT_BEHAVIOR_SHIFT = 16
+_INT_FRESH_SHIFT = 22
+_INT_CFG_SHIFT = 23
 
 
 def _reqs_wide(packed: torch.Tensor, cfg=None) -> ReqBatch:
@@ -326,7 +344,28 @@ def _reqs_lean(lane: torch.Tensor, cfg: torch.Tensor) -> ReqBatch:
     )
 
 
-_DECODERS = {WIDE: _reqs_wide, COMPACT: _reqs_compact, LEAN: _reqs_lean}
+def _reqs_interned(packed: torch.Tensor, cfg: torch.Tensor) -> ReqBatch:
+    meta = packed[1]
+    # a config id past the table reads its last row, as XLA's gather clamps
+    cfgid = ((meta >> _INT_CFG_SHIFT) & (INTERN_MAX_CFG - 1)).to(I64).clamp(
+        max=cfg.shape[0] - 1)
+    rows = cfg.index_select(0, cfgid)
+    zero64 = torch.zeros(packed.shape[-1], dtype=I64, device=packed.device)
+    return ReqBatch(
+        slot=packed[0],
+        hits=(meta & _INT_HITS_MAX).to(I64),
+        limit=rows[:, 0],
+        duration=rows[:, 1],
+        algorithm=(meta >> _INT_ALGO_SHIFT) & 1,
+        behavior=(meta >> _INT_BEHAVIOR_SHIFT) & _META_BEHAVIOR_MASK,
+        greg_expire=zero64,
+        greg_interval=zero64,
+        fresh=(meta & (1 << _INT_FRESH_SHIFT)) != 0,
+    )
+
+
+_DECODERS = {WIDE: _reqs_wide, COMPACT: _reqs_compact, LEAN: _reqs_lean,
+             INTERNED: _reqs_interned}
 
 
 def _wide_response(resp: RespBatch, now_ms) -> torch.Tensor:
@@ -368,12 +407,16 @@ _kernels: Optional[SimpleNamespace] = None
 # (zeroed) at the first launch there and never written by the host again.
 _scratch: Dict[int, torch.Tensor] = {}
 
-_PACKED_DTYPE = {WIDE: I64, COMPACT: I32, LEAN: I32}
+_PACKED_DTYPE = {WIDE: I64, COMPACT: I32, LEAN: I32, INTERNED: I32}
 # the staging's dims for _launch.check, one window and a scan (B free)
 _PACKED_DIMS = {(WIDE, False): (9, None), (WIDE, True): (None, 9, None),
                 (COMPACT, False): (COMPACT_ROWS, None),
                 (COMPACT, True): (None, COMPACT_ROWS, None),
-                (LEAN, False): (None,), (LEAN, True): (None, None)}
+                (LEAN, False): (None,), (LEAN, True): (None, None),
+                (INTERNED, False): (INTERN_ROWS, None),
+                (INTERNED, True): (None, INTERN_ROWS, None)}
+# the config table a format takes: (rows, columns)
+_CFG_DIMS = {LEAN: (LEAN_MAX_CFG, 4), INTERNED: (INTERN_MAX_CFG, 2)}
 
 
 def _load() -> SimpleNamespace:
@@ -405,8 +448,10 @@ def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
     if state.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
     _launch.check(packed, "staging", _PACKED_DTYPE[fmt], _PACKED_DIMS[fmt, scan], index)
-    if fmt == LEAN:
-        _launch.check(cfg, "config table", I64, (LEAN_MAX_CFG, 4), index)
+    if fmt == INTERNED and cfg is not None and cfg.shape[0] < INTERN_MAX_CFG:
+        cfg = _pad_interned_cfg(cfg)
+    if fmt in _CFG_DIMS:
+        _launch.check(cfg, "config table", I64, _CFG_DIMS[fmt], index)
     shape = packed.shape
     B = shape[-1]
     K = shape[0] if scan else 1
@@ -424,13 +469,24 @@ def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
         scratch = _scratch[index] = state.new_zeros(k.scratch_words)
     _launch.raise_on(k.decide_launch(
         index, fmt, state.data_ptr(), C, packed.data_ptr(),
-        cfg.data_ptr() if fmt == LEAN else None, out.data_ptr(), K, B, int(now_ms),
+        cfg.data_ptr() if fmt in _CFG_DIMS else None, out.data_ptr(), K, B, int(now_ms),
         int(scan), scratch.data_ptr(), k.stream(index)), "decide")
     name = _COUNT_NAMES[fmt, scan]
     launch_counts[name] += 1
     shape_key = (name, K, B)
     launch_shapes[shape_key] = launch_shapes.get(shape_key, 0) + 1
     return out
+
+
+def _pad_interned_cfg(cfg: torch.Tensor) -> torch.Tensor:
+    """An interned config table of N < 256 rows as the kernel's 256: the rows
+    past N repeat row N - 1, where XLA's gather clamps a config id past the
+    table (the packers always ship 256 rows; nothing on the engine's path
+    pads)."""
+    if cfg.dim() != 2 or cfg.shape[0] == 0:
+        return cfg  # check() names the fault
+    pad = cfg[-1:].expand(INTERN_MAX_CFG - cfg.shape[0], cfg.shape[1])
+    return torch.cat([cfg, pad]).contiguous()
 
 
 def scan_chunk(index: int, fmt: int, K: int, B: int) -> int:
@@ -476,6 +532,20 @@ def decide_scan_packed_compact(state: torch.Tensor, packed_k: torch.Tensor, now_
     return _decide(COMPACT, state, packed_k, None, now_ms, True)
 
 
+def decide_packed_interned(state: torch.Tensor, packed: torch.Tensor,
+                           cfg: torch.Tensor, now_ms) -> torch.Tensor:
+    """decide() over one interned i32[2, B] staging buffer + i64[N <= 256, 2]
+    config table -> i32[4, B] (decide.py:650). Updates `state` in place."""
+    return _decide(INTERNED, state, packed, cfg, now_ms, False)
+
+
+def decide_scan_packed_interned(state: torch.Tensor, packed_k: torch.Tensor,
+                                cfg: torch.Tensor, now_ms) -> torch.Tensor:
+    """K interned windows i32[K, 2, B] + one shared config table, in order
+    -> i32[K, 4, B] (decide.py:675). Updates `state` in place."""
+    return _decide(INTERNED, state, packed_k, cfg, now_ms, True)
+
+
 def decide_packed_lean(state: torch.Tensor, packed: torch.Tensor,
                        cfg: torch.Tensor, now_ms) -> torch.Tensor:
     """decide() over one lean i32[B] lane word per request + i64[128, 4]
@@ -491,7 +561,8 @@ def decide_scan_packed_lean(state: torch.Tensor, packed_k: torch.Tensor,
 
 
 # ------------------------------------------------------------ host packers
-# Copies of the JAX package's numpy packers (decide.py:588-618, 821-982).
+# Copies of the JAX package's numpy packers (decide.py:588-618, 689-820,
+# 821-982).
 
 
 def compact_window(packed):
@@ -512,6 +583,106 @@ def compact_window(packed):
         | ((packed[..., 8, :] != 0) << 7)
     )
     return out
+
+
+def _intern_pairs(packed):
+    """Shared eligibility gate for the two interners: the
+    (limit << 31) | duration pair per lane, or None when any lane cannot
+    ride the interned format (gregorian, hits outside [0, 2^15),
+    limit/duration outside [0, 2^31))."""
+    hits = packed[..., 1, :]
+    if (hits < 0).any() or (hits > _INT_HITS_MAX).any():
+        return None
+    vals = packed[..., 2:4, :]
+    if (vals < 0).any() or (vals > _I32_MAX).any():
+        return None
+    if (packed[..., 5, :] & int(Behavior.DURATION_IS_GREGORIAN)).any():
+        return None
+    # both < 2^31: injective, fits i64
+    return (packed[..., 2, :] << 31) | packed[..., 3, :]
+
+
+def _emit_interned(packed, inv):
+    """Shared meta-word emission: wide staging + per-lane config ids ->
+    interned i32 rows. The bit layout has three writers (here and
+    keydir.cpp keydir_prep_pack_interned, the callers' id assignment
+    aside) and one reader (_reqs_interned, csrc/decide.cu's decode)."""
+    out = np.empty(packed.shape[:-2] + (INTERN_ROWS, packed.shape[-1]),
+                   np.int32)
+    out[..., 0, :] = packed[..., 0, :]
+    out[..., 1, :] = (
+        packed[..., 1, :]
+        | ((packed[..., 4, :] & 1) << _INT_ALGO_SHIFT)
+        | ((packed[..., 5, :] & _META_BEHAVIOR_MASK) << _INT_BEHAVIOR_SHIFT)
+        | ((packed[..., 8, :] != 0).astype(np.int64) << _INT_FRESH_SHIFT)
+        | (inv.astype(np.int64) << _INT_CFG_SHIFT)
+    )
+    return out
+
+
+def intern_window(packed):
+    """Wide i64[9, W] (or [K, 9, W]) staging -> (interned i32 rows,
+    i64[INTERN_MAX_CFG, 2] config table), or None when any lane is
+    ineligible (see _intern_pairs) or the stack holds more than
+    INTERN_MAX_CFG distinct (limit, duration) pairs. Padding lanes
+    (slot == -1) intern like any other (their zero config occupies one
+    table row)."""
+    pair = _intern_pairs(packed)
+    if pair is None:
+        return None
+    cfg_vals, inv = np.unique(pair, return_inverse=True)
+    if cfg_vals.size > INTERN_MAX_CFG:
+        return None
+    cfg = np.zeros((INTERN_MAX_CFG, 2), np.int64)
+    cfg[: cfg_vals.size, 0] = cfg_vals >> 31
+    cfg[: cfg_vals.size, 1] = cfg_vals & _I32_MAX
+    return _emit_interned(packed, inv.reshape(pair.shape)), cfg
+
+
+class InternCache:
+    """Stateful interner for a serving loop: the config table persists
+    across windows, so the per-window cost is one searchsorted against the
+    (tiny, sorted) known-pair array instead of np.unique's full sort of
+    every lane. New pairs grow the table (stable ids: already-issued meta
+    words stay valid); overflow past INTERN_MAX_CFG or any ineligible lane
+    returns None for that window (the caller falls back to wide/compact
+    staging), leaving the cache intact."""
+
+    def __init__(self):
+        self._sorted_pairs = np.empty(0, np.int64)  # sorted for searchsorted
+        self._sorted_ids = np.empty(0, np.int64)  # pair -> stable config id
+        self.cfg = np.zeros((INTERN_MAX_CFG, 2), np.int64)
+        self.n_cfg = 0
+
+    def intern(self, packed):
+        """Wide i64[..., 9, W] staging -> interned i32 rows (the shared
+        self.cfg table ships alongside), or None when ineligible."""
+        pair = _intern_pairs(packed)
+        if pair is None:
+            return None
+        flat = pair.ravel()
+        pos = np.searchsorted(self._sorted_pairs, flat)
+        pos_c = np.minimum(pos, max(self._sorted_pairs.size - 1, 0))
+        known = (self._sorted_pairs.size > 0) \
+            and bool((self._sorted_pairs[pos_c] == flat).all())
+        if not known:
+            new = np.unique(flat) if self._sorted_pairs.size == 0 else \
+                np.setdiff1d(np.unique(flat), self._sorted_pairs,
+                             assume_unique=True)
+            if self.n_cfg + new.size > INTERN_MAX_CFG:
+                return None
+            ids = np.arange(self.n_cfg, self.n_cfg + new.size)
+            self.cfg[ids, 0] = new >> 31
+            self.cfg[ids, 1] = new & _I32_MAX
+            self.n_cfg += new.size
+            self._sorted_pairs = np.concatenate([self._sorted_pairs, new])
+            self._sorted_ids = np.concatenate([self._sorted_ids, ids])
+            order = np.argsort(self._sorted_pairs, kind="stable")
+            self._sorted_pairs = self._sorted_pairs[order]
+            self._sorted_ids = self._sorted_ids[order]
+            pos = np.searchsorted(self._sorted_pairs, flat)
+        inv = self._sorted_ids[pos].reshape(pair.shape)
+        return _emit_interned(packed, inv)
 
 
 def widen_compact_out(out, now_ms: int):
