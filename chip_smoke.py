@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (gubernator_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--windows 100] [--out results.json]
+    python3 chip_smoke.py [--seed 0] [--windows 30] [--out results.json]
 
 Run from the root of the repository. Phases, each fatal on failure:
 
@@ -44,7 +44,7 @@ Run from the root of the repository. Phases, each fatal on failure:
    longest per-row chain of each scan group. The first 16 scan groups of
    each format are captured (staging and the rows they touch) and replayed
    on a fresh table, kernel against plain version, bit-equal, then timed;
-3b. the same engines on the python directory (GUBER_NO_NATIVE=1), 20
+3b. the same engines on the python directory (GUBER_NO_NATIVE=1), 10
    windows, no lone requests;
 4. the GLOBAL sync: the ring kernel against its plain version at
    L in {G, 4G}, timed; the raw stream handle of the shared launch path
@@ -52,7 +52,8 @@ Run from the root of the repository. Phases, each fatal on failure:
    side stream; the host-stage split of the ring wrapper over 10,000
    calls; then sync steps over S = 8 shards of 1,250,000 rows with
    G = 1024 global keys, collectives="ring" on the card against "psum" on
-   the CPU; mirrors and shard tables must be equal;
+   the CPU (each step's owner apply one sharded decide launch); mirrors
+   and shard tables must be equal;
 5. the row kernels against their plain versions on the card: inject at
    m in {1, 16, 64, 4096}, from rows on the card and from page-locked host
    rows (the engine's form, timed as a host round trip beside
@@ -126,19 +127,45 @@ Run from the root of the repository. Phases, each fatal on failure:
    decide_packed_interned on the card (the leftovers through an Engine
    whose dispatches ship interned when eligible, so the interned scan
    runs too), against a CPU twin and against prep_pack_columnar with the
-   compact kernel on a second card table: answers and tables equal.
+   compact kernel on a second card table: answers and tables equal;
+9. the sharded engine, 8 owners x 1,250,000 rows (10,000,000, 640 MB):
+   (9a) the sharded decide (csrc/decide.cu, one launch for every owner)
+   against its plain version on make_sharded_table's table populated from
+   --seed, wide and lean, at W in {64, 1024, 8192} an owner and the scan
+   at K in {2, 32}, W = 64, every window of every owner with a lane past
+   the owner's table beside a lane that writes the owner's row C-1 (even
+   owners; odd owners in odd windows of a scan), some lean windows with
+   the sign bit set, at R x S = 1 x 8 (timed, beside the same window as 8
+   launches of the single-table kernel on the owners' views) and 2 x 4;
+   the sharded gather and inject (csrc/rows.cu) at m in {1, 64, 4096} an
+   owner (padding, past-table lanes, row C-1, values past int32), timed
+   beside one indexing of the flattened table and index_copy_; (9b)
+   ShardedEngine(device="cuda", n_shards=8, capacity_per_shard=1_250_000)
+   after warmup() and a CPU twin on phase 3's first 24 windows with
+   Behavior.GLOBAL on every 8th of the 4,096 hottest keys, global_sync()
+   after every window: responses, tables, mirrors, registries and
+   counters equal after every window; (9c) the Store path on 8 windows
+   (both Stores holding the 100,000 hottest keys' buckets); (9d) 8
+   windows as wire columns through submit_columnar / complete_columnar,
+   then BackendCombiner depth 3 on the card against depth 1 on the CPU
+   twin. Prints decisions/s, the stage split, the GLOBAL sync ms a step,
+   mirror answers and registry fallbacks, and the sharded launches by
+   shape.
 
 Device times come from torch.profiler, for the kernels and for each
 library call they are compared with; where the profiler gives none the
-record holds null, never a host-clock time. Every line with a time ends
+record holds null, never a host-clock time, except for the kernels timed
+through kernel_ms (the sweep and phase 9's), which then take CUDA events
+around back-to-back calls and say so (`ms_source`). Every line with a time ends
 with the card and its power limit as nvidia-smi gives them.
 
 Kernel launch counts are set to 0 just before each main path (phases 3,
 3b, 4, the bench_rows loop, each run of phase 6, phase 7's restores and
-Store path, and phase 8b-8d) and read just after; every kernel must have
-launched (each decide form and format on phases 3-8 together, the interned
-ones on 8d), inject and gather on phase 3, both through their pinned entry
-points only, the probe and the sweep on 8b-8c. The last two lines are the
+Store path, phase 8b-8d, and 9b-9d) and read just after; every kernel
+must have launched (each decide form and format on phases 3-8 together,
+the interned ones on 8d), inject and gather on phase 3, both through their
+pinned entry points only, the probe and the sweep on 8b-8c, the sharded
+decide's four forms on 9b-9d and the sharded gather and inject on 9c. The last two lines are the
 {"kernels": [...]} record and the contract line {"ok": true, "device":
 {...}}. The script imports nothing of JAX.
 """
@@ -163,11 +190,11 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch import bench_rows
-from gubernator_tpu_torch.models.engine import Engine
+from gubernator_tpu_torch.models.engine import Engine, EngineStats
 from gubernator_tpu_torch.models.devdir_engine import DevDirEngine
 from gubernator_tpu_torch.ops import _build, _launch, decide as dk, devdir as ddk, ring as rk, rows as rowk
 from gubernator_tpu_torch.parallel import MeshPlan, make_global_sync, make_sharded_table, shard_of_key
-from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, _psum
+from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, GlobalMirror, _psum
 from gubernator_tpu_torch.store import BinarySnapshotLoader, BucketSnapshot, MockStore
 from gubernator_tpu_torch.types import Behavior, RateLimitReq
 from gubernator_tpu_torch.utils.gregorian import gregorian_duration, gregorian_expiration
@@ -177,7 +204,7 @@ CAPACITY = 10_000_001  # the north star's 10M keys; fits the 24-bit lean slot
 WINDOW = 8192  # requests per client batch, the engine's max_width
 N_KEYS = 1_000_000  # distinct keys of the main-path stream
 LONE_KEYS = 16  # hottest keys of each window sent as lone requests
-PYTHON_DIR_WINDOWS = 20  # phase 3b
+PYTHON_DIR_WINDOWS = 10  # phase 3b
 INJECT_M = (1, 16, 64, 4096)  # phase 3 injects at most LONE_KEYS rows
 GATHER_M = (1, 64, 8192)  # phase 3 gathers 1 slot per seed_mirror
 PINNED_M = (1, 64)  # the pinned form: the lone path's 1 slot, and 64
@@ -210,8 +237,16 @@ REPLACES = {"decide_wide": "gubernator_tpu/ops/decide.py:464",
             "ring_all_reduce": "gubernator_tpu/ops/ring.py:39",
             "inject_rows": "gubernator_tpu/models/engine.py:74",
             "gather_rows": "gubernator_tpu/models/engine.py:86",
-            "row_bump": "scripts/bench_pallas_rows.py:36"}
+            "row_bump": "scripts/bench_pallas_rows.py:36",
+            "decide_sharded_wide": "gubernator_tpu/parallel/sharded.py:95",
+            "decide_sharded_scan_wide": "gubernator_tpu/parallel/sharded.py:126",
+            "decide_sharded_lean": "gubernator_tpu/parallel/sharded.py:158",
+            "decide_sharded_scan_lean": "gubernator_tpu/parallel/sharded.py:190",
+            "gather_sharded": "gubernator_tpu/parallel/sharded.py:216",
+            "inject_sharded": "gubernator_tpu/parallel/sharded.py:243"}
 SOURCES = {**{name: "gubernator_tpu_torch/csrc/decide.cu" for name in dk.launch_counts},
+           "gather_sharded": "gubernator_tpu_torch/csrc/rows.cu",
+           "inject_sharded": "gubernator_tpu_torch/csrc/rows.cu",
            "ring_all_reduce": "gubernator_tpu_torch/csrc/ring.cu",
            "inject_rows": "gubernator_tpu_torch/csrc/rows.cu",
            "gather_rows": "gubernator_tpu_torch/csrc/rows.cu",
@@ -1250,7 +1285,10 @@ def phase_global(seed, dev, results):
         t = time.perf_counter()
         _, m_card, _ = ring_sync(card, torch.from_numpy(delta).to(dev), cfg_d, now)
         torch.cuda.synchronize()
-        t_ring += time.perf_counter() - t
+        step_s = time.perf_counter() - t
+        t_ring += step_s
+        if not step:  # the first step may pay the libraries' first loads
+            first_ms = step_s * 1e3
         _, m_host, _ = psum_sync(host, torch.from_numpy(delta), cfg_h, now)
         for f in m_card._fields:
             check(torch.equal(getattr(m_card, f).cpu(), getattr(m_host, f)),
@@ -1258,10 +1296,15 @@ def phase_global(seed, dev, results):
         check(torch.equal(card.cpu(), host), f"sync step {step}: shard tables differ")
         cfg_np["fresh"] = np.zeros(G, np.bool_)
     launches = {**dk.launch_counts, **rk.launch_counts}
-    results["global"] = dict(S=S, C=C, G=G, steps=steps, step_ms=t_ring / steps * 1e3,
+    # step_ms: the mean of all steps, as before; steady_step_ms leaves the first out
+    step_ms = t_ring / steps * 1e3
+    steady_ms = (t_ring * 1e3 - first_ms) / (steps - 1)
+    results["global"] = dict(S=S, C=C, G=G, steps=steps, step_ms=step_ms,
+                             steady_step_ms=steady_ms, first_step_ms=first_ms,
                              launches=launches)
-    tlog(f"  {steps} sync steps: equal mirrors and shard tables; ring step "
-         f"{t_ring / steps * 1e3:.3f} ms; launches {launches}")
+    tlog(f"  {steps} sync steps: equal mirrors and shard tables; ring step {step_ms:.3f} ms "
+         f"(steps 1-{steps}; steps 2-{steps} {steady_ms:.3f} ms, the first {first_ms:.3f} ms); "
+         f"launches {launches}")
     del card, host
     torch.cuda.empty_cache()
     return launches, ring_rec[4 * G]
@@ -2610,19 +2653,20 @@ def devdir_kernels(seed, dev, errs, results):
     cleared = int((fp == 0).sum())
     # every timed sweep writes the fingerprint of each dead row again
     dead = int(((table[:, dk.ROW_ALGO] < 0) | (NOW > table[:, dk.ROW_EXPIRE])).sum())
-    ms = profiled_ms(lambda i: ddk.refresh_cuda(fk, table, NOW), 16, "refresh_kernel")
+    ms, ms_source = kernel_ms(lambda i: ddk.refresh_cuda(fk, table, NOW), 16, "refresh_kernel")
     call_ms = event_ms(lambda i: ddk.refresh_cuda(fk, table, NOW), 32)
     plain_ms = event_ms(lambda i: ddk.refresh_vacancies_plain(fp, table, NOW), 8)
     # both 32-byte sectors of each 64-byte row are read; fps is only written
     n_bytes = CAPACITY * 64 + dead * 8
     b_ms, b_by = bound_ms(n_bytes, CAPACITY * 4)
-    recs.append(dict(kernel="refresh_vacancies", C=CAPACITY, W=None, ms=ms, call_ms=call_ms,
+    recs.append(dict(kernel="refresh_vacancies", C=CAPACITY, W=None, ms=ms, ms_source=ms_source,
+                     call_ms=call_ms,
                      plain_ms=plain_ms, bytes=n_bytes, bound_ms=b_ms, bound_by=b_by,
                      cleared=cleared, dead_rows=dead))
     tlog(f"  refresh_vacancies C={CAPACITY}: bit-equal ({cleared} fingerprints 0 after, "
          f"{dead} rows vacant or expired); "
-         f"kernel {fms(ms)} ms on the device, {call_ms:.4f} ms per wrapper call; plain "
-         f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+         f"kernel {fms(ms)} ms on the device ({ms_source}), {call_ms:.4f} ms per wrapper "
+         f"call; plain {plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
     lib_ms = profiled_ms(lambda i: torch.count_nonzero(fk), 16)
     lib_call = event_ms(lambda i: torch.count_nonzero(fk), 32)
     results["key_count_library"] = dict(call="torch.count_nonzero", C=CAPACITY, ms=lib_ms,
@@ -2888,10 +2932,525 @@ def phase_devdir(seed, dev, results):
     return launches, errs, recs
 
 
+# ----------------------------------------------------------------- phase 9
+
+SHARDS, SHARD_ROWS = 8, 1_250_000  # the sharded engine's 8 x 1,250,000 = 10,000,000 rows
+SHARD_GEOMS = ((1, SHARDS), (2, SHARDS // 2))  # (R, S): 9a holds the decide at both
+SHARD_W = (64, 1024, WINDOW)  # 9a's one-window widths, per owner
+SHARD_K = (2, 32)  # 9a's scan depths at W = 64
+SHARD_M = (1, 64, 4096)  # 9a's gather and inject lanes, per owner
+GLOBAL_HOT, GLOBAL_EVERY = 4096, 8  # 9b's GLOBAL keys: every 8th of the 4,096 hottest
+SHARDED_WINDOWS = 24  # 9b: phase 3's first 24 windows, 196,608 requests
+SHARDED_STORE_WINDOWS = STORE_WINDOWS  # 9c
+SHARDED_COL_WINDOWS = 8  # 9d
+SHARDED_KERNELS = ("decide_sharded_wide", "decide_sharded_scan_wide", "decide_sharded_lean",
+                   "decide_sharded_scan_lean", "gather_sharded", "inject_sharded")
+
+
+def kernel_ms(fn, iters, kernel_substr, per_call=False):
+    """A kernel's device ms per launch: torch.profiler's, or, where its trace
+    shows no device time for the kernel, CUDA events around `iters` calls
+    back to back. Returns (ms, source) and logs the source it fell back to."""
+    ms = profiled_ms(fn, iters, kernel_substr, per_call)
+    if ms is not None:
+        return ms, "torch.profiler"
+    log(f"  {kernel_substr}: device ms from CUDA events instead (the profiler recorded none)")
+    return event_ms(fn, iters), "cuda events"
+
+
+def sharded_table(R, S, seed, dev):
+    """The sharded engine's i64[R, S, 1,250,000, 8] table (make_sharded_table,
+    as ShardedEngine makes it), populated from `seed` by populate_table."""
+    t = make_sharded_table(MeshPlan(n_shards=S, capacity_per_shard=SHARD_ROWS,
+                                    n_regions=R), dev)
+    t.copy_(populate_table(R * S * SHARD_ROWS, seed, dev).view(R, S, SHARD_ROWS, 8))
+    return t
+
+
+def shard_edges(wide, C):
+    """The edge lanes in every window of every owner of a wide staging
+    [R, S, (K,) 9, W]: lane 0 reads past the owner's own table (slot C + o),
+    lane 1 writes the owner's row C-1 in the same window in even owners (and
+    in odd windows of a scan in odd owners), both on a live lane's request;
+    the last lane is padding."""
+    S = wide.shape[1]
+    for idx in np.ndindex(*wide.shape[:-2]):
+        w = wide[idx]
+        o, k = idx[0] * S + idx[1], idx[2] if len(idx) > 2 else 0
+        src = w[1:, np.flatnonzero(w[0] >= 0)[-1]].copy()
+        w[:, 0] = [C + o, *src]
+        if o % 2 == 0 or k % 2 == 1:
+            w[:, 1] = [C - 1, *src]
+        w[0, -1] = -1
+        w[1:, -1] = 0
+    return wide
+
+
+def shard_stimulus(rng, kern, fmt, W, K=0):
+    """A wide staging [R, S, (K,) 9, W] of phase 2's stimulus for each owner
+    (its rows, the slots below C-1; a scan's windows overlap on a pool of
+    256 rows) with shard_edges' lanes."""
+    R, S, C = kern.shape[:3]
+    per = []
+    for r in range(R):
+        for s in range(S):
+            if K:
+                pool = rng.choice(C - 1, 256, replace=False)
+                per.append(np.stack([stimulus(rng, kern[r, s], W, fmt, slots=pool)
+                                     for _ in range(K)]))
+            else:
+                per.append(stimulus(rng, kern[r, s], W, fmt, slots=C - 1))
+    wide = np.stack(per).reshape(R, S, *per[0].shape)
+    if fmt == "lean":
+        # rows that wide windows wrote carry calendar durations; a lean
+        # window keeps to the configurations lean_window can intern
+        d = wide[..., 3, :]
+        wide[..., 3, :] = np.where(np.isin(d, (1000, 60_000, 3_600_000)), d, 60_000)
+    return shard_edges(wide, C)
+
+
+def blank_windows(wide, K):
+    """Windows with no live lane, which the plain version answers without a
+    call: owner 3's window (a scan: its window 1) all padding, and in a
+    scan every window of owner 5."""
+    S = wide.shape[1]
+    blank = [divmod(3, S) + ((1,) if K else ())] + ([divmod(5, S)] if K else [])
+    for idx in blank:
+        wide[idx + (Ellipsis, 0, slice(None))] = -1
+        wide[idx + (Ellipsis, slice(1, None), slice(None))] = 0
+    return wide
+
+
+def lean_signed(lanes, cfg):
+    """A lean staging with every config id moved up by 64 (mod 128), so that
+    ids from 64 set the lane word's sign bit; the config table rolled to
+    match. Padding words stay."""
+    u = lanes.view(np.uint32)
+    pad = (u & dk._LEAN_SLOT_MASK) == dk._LEAN_PAD
+    ids = ((u >> dk._LEAN_CFG_SHIFT) + 64) % dk.LEAN_MAX_CFG
+    moved = (u & ((1 << dk._LEAN_CFG_SHIFT) - 1)) | (ids << dk._LEAN_CFG_SHIFT)
+    return np.where(pad, u, moved).astype(np.uint32).view(np.int32), np.roll(cfg, 64, axis=0)
+
+
+def shard_staged(fmt, wide, C, dev, signed=False):
+    if fmt == "wide":
+        return torch.from_numpy(wide).to(dev), None
+    ln = dk.lean_window(wide, C)
+    check(ln is not None, "sharded lean stimulus not eligible")
+    lanes, cfg = lean_signed(*ln) if signed else ln
+    return torch.from_numpy(lanes).to(dev), torch.from_numpy(cfg).to(dev)
+
+
+def hold_sharded(f, kern, plain, packed, cfg, scan, what, errs):
+    """One sharded decide through the kernel and the plain version: equal
+    responses and whole tables, or the run fails."""
+    out_k = dk.decide_sharded_cuda(f, kern, packed, cfg, NOW, scan)
+    out_p = dk.decide_sharded_plain(f, plain, packed, cfg, NOW, scan)
+    torch.cuda.synchronize()
+    name = dk._SHARDED_COUNT_NAMES[f, scan]
+    errs[name] = max(errs.get(name, 0), max_abs_err(out_k, out_p), max_abs_err(kern, plain))
+    check(torch.equal(out_k, out_p), f"{what}: responses differ")
+    check(torch.equal(kern, plain), f"{what}: tables differ")
+
+
+def shard_rows_touched(wide, C):
+    R, S = wide.shape[:2]
+    return sum(touched_rows(wide[r, s], C) for r in range(R) for s in range(S))
+
+
+def sharded_decide(seed, dev, errs, results):
+    """9a, the sharded decide: every shape at R = 1, S = 8 held and timed (the
+    kernel, its plain version, the R*S launches of the single-table kernel
+    on the owners' views); the edge cases at R = 2, S = 4 too."""
+    rng = np.random.default_rng(seed + 10)
+    recs = []
+    for R, S in SHARD_GEOMS:
+        kern = sharded_table(R, S, seed + 11, dev)
+        plain = kern.clone()
+        C, n = SHARD_ROWS, R * S
+        timed = (R, S) == SHARD_GEOMS[0]
+        for fmt in ("wide", "lean"):
+            f = FORMATS[fmt]
+            for W, K in [(w, 0) for w in SHARD_W] + [(64, k) for k in SHARD_K]:
+                scan = K > 0
+                wide = shard_stimulus(rng, kern, fmt, W, K)
+                packed, cfg = shard_staged(fmt, wide, C, dev, signed=(W == 1024 or K == 2))
+                what = f"sharded {fmt} R={R} S={S} W={W} K={K}"
+                hold_sharded(f, kern, plain, packed, cfg, scan, what, errs)
+                if W == 64:
+                    blank = blank_windows(shard_stimulus(rng, kern, fmt, W, K), K)
+                    hold_sharded(f, kern, plain, *shard_staged(fmt, blank, C, dev), scan,
+                                 what + " with padded owner windows", errs)
+                if not timed:
+                    continue
+                stims = [shard_staged(fmt, shard_stimulus(rng, kern, fmt, W, K), C, dev)
+                         for _ in range(16)]
+                views = [(pk.view(n, *pk.shape[2:]), cf) for pk, cf in stims]
+                tables = kern.view(n, C, 8)
+
+                def run_k(i):
+                    pk, cf = stims[i % 16]
+                    dk.decide_sharded_cuda(f, kern, pk, cf, NOW, scan)
+
+                def run_p(i):
+                    pk, cf = stims[i % 16]
+                    dk.decide_sharded_plain(f, plain, pk, cf, NOW, scan)
+
+                def run_loop(i):
+                    pk, cf = views[i % 16]
+                    for o in range(n):
+                        dk.decide_cuda(f, tables[o], pk[o], cf, NOW, scan)
+
+                call_ms = event_ms(run_k, 64)
+                ms, src = kernel_ms(run_k, 32, "decide_kernel")
+                plain_ms = event_ms(run_p, 2 if K == 32 else 8)  # K = 32: ~1 s a call
+                loop_call_ms = event_ms(run_loop, 32)
+                loop_ms = profiled_ms(run_loop, 16, "decide_kernel", per_call=True)
+                plain.copy_(kern)  # the timing runs moved the two tables apart
+                rec = dict(kernel=dk._SHARDED_COUNT_NAMES[f, scan], fmt=fmt, R=R, S=S, C=C,
+                           width=W, scan_k=K, ms=ms, ms_source=src, call_ms=call_ms,
+                           plain_ms=plain_ms, loop_ms=loop_ms, loop_call_ms=loop_call_ms,
+                           **decide_bound(fmt, wide, shard_rows_touched(wide, C)))
+                recs.append(rec)
+                tlog(f"  {what}: bit-equal; kernel {fms(ms)} ms on the device ({src}), "
+                     f"{call_ms:.4f} ms per wrapper call; {n} single-table launches "
+                     f"{fms(loop_ms)} ms on the device, {loop_call_ms:.4f} ms per {n} calls; "
+                     f"plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.6f} ms "
+                     f"({rec['bound_by']})")
+        if not timed:
+            log(f"  sharded decide at R={R} S={S}: every shape bit-equal")
+        del kern, plain
+        torch.cuda.empty_cache()
+    return recs
+
+
+def sharded_rows_stimulus(rng, R, S, C, m, dev):
+    """Per owner m distinct slots below C-1 (padding -1 and past-table lanes
+    C, C + 3 among them; the owner's row C-1 written by lane 3 in even
+    owners), and i64[R, S, 7, m] rows with values past int32 in every field."""
+    slot = np.stack([rng.choice(C - 1, m, replace=False) for _ in range(R * S)])
+    slot = slot.reshape(R, S, m).astype(np.int32)
+    if m >= 4:
+        slot[..., :3] = (-1, C, C + 3)
+        slot[:, ::2, 3] = C - 1
+    rows = rng.integers(-(1 << 40), 1 << 40, (R, S, 7, m), dtype=np.int64)
+    return torch.from_numpy(slot).to(dev), torch.from_numpy(rows).to(dev)
+
+
+def sharded_rows(seed, dev, errs, results):
+    """9a, the sharded gather and inject at m lanes an owner: held against
+    their plain versions (the gather also on clamped lanes), then timed
+    beside the library call: one indexing of the flattened table with each
+    owner's base offset for the gather, index_copy_ for the inject."""
+    rng = np.random.default_rng(seed + 12)
+    R, S = SHARD_GEOMS[0]
+    C, n = SHARD_ROWS, R * S
+    kern = sharded_table(R, S, seed + 13, dev)
+    plain = kern.clone()
+    flat = kern.view(n * C, 8)
+    base = (torch.arange(n, device=dev, dtype=torch.int64) * C).view(R, S, 1)
+    recs = []
+    for m in SHARD_M:
+        slot, rows = sharded_rows_stimulus(rng, R, S, C, m, dev)
+        got, want = rowk.gather_sharded_cuda(kern, slot), rowk.gather_sharded_plain(plain, slot)
+        torch.cuda.synchronize()
+        errs["gather_sharded"] = max(errs.get("gather_sharded", 0), max_abs_err(got, want))
+        check(torch.equal(got, want), f"gather_sharded m={m}: rows differ")
+        rowk.inject_sharded_cuda(kern, slot, rows)
+        rowk.inject_sharded_plain(plain, slot, rows)
+        torch.cuda.synchronize()
+        errs["inject_sharded"] = max(errs.get("inject_sharded", 0), max_abs_err(kern, plain))
+        check(torch.equal(kern, plain), f"inject_sharded m={m}: tables differ")
+        idx = (slot.to(torch.int64).clamp(0, C - 1) + base).view(-1)
+        keep = ((slot >= 0) & (slot < C)).view(-1)
+        idx_keep = (slot.to(torch.int64) + base).view(-1)[keep]
+        rows8 = torch.cat([rows.transpose(2, 3).reshape(-1, 7),
+                           rows.new_zeros((n * m, 1))], dim=1)[keep]
+        for name, kname, run_k, run_p, run_lib, n_bytes in (
+                ("gather_sharded", "gather_kernel",
+                 lambda i: rowk.gather_sharded_cuda(kern, slot),
+                 lambda i: rowk.gather_sharded_plain(plain, slot),
+                 lambda i: flat[idx], n * m * (4 + 56 + 56)),
+                ("inject_sharded", "inject_sharded_kernel",
+                 lambda i: rowk.inject_sharded_cuda(kern, slot, rows),
+                 lambda i: rowk.inject_sharded_plain(plain, slot, rows),
+                 lambda i: flat.index_copy_(0, idx_keep, rows8),
+                 n * m * 4 + int(keep.sum()) * (56 + 64))):
+            call_ms, lib_call = in_turns(lambda f: event_ms(f, 64), run_k, run_lib)
+            ms, src = kernel_ms(run_k, 32, kname)
+            plain_ms = event_ms(run_p, 8)
+            lib_ms = profiled_ms(run_lib, 32)
+            b_ms, b_by = bound_ms(n_bytes, 0)
+            rec = dict(kernel=name, R=R, S=S, C=C, m=m, ms=ms, ms_source=src, call_ms=call_ms,
+                       plain_ms=plain_ms, library_ms=lib_call, library_device_ms=lib_ms,
+                       bytes=n_bytes, bound_ms=b_ms, bound_by=b_by)
+            recs.append(rec)
+            tlog(f"  {name} R={R} S={S} m={m}: bit-equal; kernel {fms(ms)} ms on the device "
+                 f"({src}), {call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms; library "
+                 f"{'indexing' if name == 'gather_sharded' else 'index_copy_'} {lib_call:.4f} "
+                 f"ms per call, {fms(lib_ms)} ms on the device; bound {b_ms:.6f} ms ({b_by})")
+        torch.cuda.synchronize()
+        plain.copy_(kern)
+    del kern, plain, flat
+    torch.cuda.empty_cache()
+    return recs
+
+
+def global_stream(seed, n_windows):
+    """Phase 3's first windows with Behavior.GLOBAL on the keys of every
+    GLOBAL_EVERY-th Zipf rank among the GLOBAL_HOT hottest (Zipf rank k is
+    key k). Returns the batches, the key configs and the GLOBAL request
+    count."""
+    batches, key_cfg = request_stream(seed, n_windows)
+    hot = np.zeros(N_KEYS, np.bool_)
+    hot[:GLOBAL_HOT:GLOBAL_EVERY] = True
+    n_global = 0
+    for keys, batch in batches:
+        for k, r in zip(keys.tolist(), batch):
+            if hot[k]:
+                r.behavior |= int(Behavior.GLOBAL)
+                n_global += 1
+    return batches, key_cfg, n_global
+
+
+def sharded_state_equal(gpu, cpu, what, counters=True):
+    """Tables, GLOBAL mirrors and registries, and (when `counters`) the
+    counters of a card ShardedEngine and its CPU twin, or the run fails."""
+    check(torch.equal(gpu.state.cpu(), cpu.state), f"{what}: tables differ")
+    for f in GlobalMirror._fields:
+        check(np.array_equal(getattr(gpu._mirror, f), getattr(cpu._mirror, f)),
+              f"{what}: mirror.{f} differs")
+    reg = lambda e: [(k, v.gidx, v.owner, v.seen, v.last_ms) for k, v in e._globals.items()]
+    check(reg(gpu) == reg(cpu) and gpu._gfree == cpu._gfree and gpu._gnext == cpu._gnext
+          and np.array_equal(gpu._gdelta, cpu._gdelta), f"{what}: GLOBAL registries differ")
+    if counters:
+        c = lambda e: {k: v for k, v in e.stats.items() if not k.endswith("_ns")}
+        check(c(gpu) == c(cpu), f"{what}: counters differ: card {c(gpu)}, CPU {c(cpu)}")
+
+
+def sharded_launches():
+    return {**{k: dk.launch_counts[k] for k in dk.launch_counts if "sharded" in k},
+            "gather_sharded": rowk.launch_counts["gather_sharded"],
+            "inject_sharded": rowk.launch_counts["inject_sharded"]}
+
+
+def sharded_shapes():
+    return {f"{name} K={k} W={w}": c for (name, k, w), c in sorted(dk.launch_shapes.items())
+            if "sharded" in name}
+
+
+def sharded_engines(dev, store=None, twin_store=None):
+    # imported here: ab_rows.py runs this file's phase 4 against parent trees
+    from gubernator_tpu_torch.parallel.sharded import ShardedEngine
+
+    kw = dict(n_shards=SHARDS, capacity_per_shard=SHARD_ROWS, min_width=64, max_width=WINDOW)
+    return (ShardedEngine(device=dev, store=store, **kw),
+            ShardedEngine(device="cpu", store=twin_store, **kw))
+
+
+def sharded_engine_run(seed, dev, results):
+    """9b: the card engine after warmup() and its CPU twin on phase 3's first
+    24 windows with the GLOBAL keys, global_sync() after every window; all
+    state equal after every window."""
+    batches, _cfg, n_global = global_stream(seed, SHARDED_WINDOWS)
+    gpu, cpu = sharded_engines(dev)
+    t = time.perf_counter()
+    gpu.warmup()
+    warm_s = time.perf_counter() - t
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    gpu_s = cpu_s = sync_s = 0.0
+    n_req = broadcast = 0
+    for i, (_keys, batch) in enumerate(batches):
+        now = NOW + i * 50
+        t = time.perf_counter()
+        got = gpu.get_rate_limits(batch, now_ms=now)
+        gpu_s += time.perf_counter() - t
+        n_req += len(batch)
+        t = time.perf_counter()
+        want = cpu.get_rate_limits(batch, now_ms=now)
+        cpu_s += time.perf_counter() - t
+        check(resp_tuples(got) == resp_tuples(want),
+              f"sharded window {i}: card and CPU engines answer differently")
+        t = time.perf_counter()
+        b = gpu.global_sync(now_ms=now + 25)
+        torch.cuda.synchronize()
+        sync_s += time.perf_counter() - t
+        check(b == cpu.global_sync(now_ms=now + 25), f"sharded window {i}: broadcasts differ")
+        broadcast += b
+        sharded_state_equal(gpu, cpu, f"sharded window {i}")
+    launches, shapes = sharded_launches(), sharded_shapes()
+    st = gpu.stats
+    stage_s = {s: st[f"{s}_ns"] / 1e9 for s in EngineStats.STAGES}
+    out = dict(requests=n_req, global_requests=n_global, warmup_s=warm_s,
+               decisions_per_s=n_req / gpu_s, cpu_decisions_per_s=n_req / cpu_s,
+               sync_ms=sync_s / len(batches) * 1e3, keys_broadcast=broadcast,
+               mirror_answers=st["global_mirror_answers"],
+               registry_fallbacks=st["global_registry_fallbacks"],
+               global_evictions=st["global_evictions"], registry=gpu.global_registry_size(),
+               lean_windows=st["lean_windows"], rounds=st["rounds"], stage_s=stage_s,
+               launches=launches, shapes=shapes)
+    results["sharded_engine"] = out
+    tlog(f"  9b: {n_req:,} requests ({n_global:,} GLOBAL) in {gpu_s:.3f} s, "
+         f"{n_req / gpu_s:,.0f} decisions/s (CPU twin {n_req / cpu_s:,.0f}/s), warmup "
+         f"{warm_s:.1f} s; responses, tables, mirrors, registries and counters equal after "
+         f"every window")
+    tlog(f"  9b GLOBAL: sync {out['sync_ms']:.3f} ms a step (host clock, with the mirror's "
+         f"read back), {broadcast} keys broadcast, {out['mirror_answers']:,} mirror answers, "
+         f"{out['registry_fallbacks']} registry fallbacks, {out['global_evictions']} "
+         f"evictions, registry {out['registry']}")
+    tlog("  9b stage seconds: " + ", ".join(f"{s} {v:.3f}" for s, v in stage_s.items())
+         + f"; {st['rounds']} rounds, {st['lean_windows']} lean windows")
+    log(f"  9b launches {launches}; by shape {shapes}")
+    del gpu, cpu
+    gc.collect()
+    return launches
+
+
+def sharded_store_run(seed, dev, results):
+    """9c: the Store path on phase 3's first 8 windows (both Stores holding the
+    100,000 hottest keys' buckets), through the sharded gather and inject."""
+    batches, key_cfg = request_stream(seed, SHARDED_STORE_WINDOWS)
+    held = held_buckets(seed, key_cfg)
+    stores = (MockStore(), MockStore())
+    for st in stores:
+        st.data.update((b.key, dataclasses.replace(b)) for b in held)
+    gpu, cpu = sharded_engines(dev, *stores)
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    gpu_s = 0.0
+    for i, (_keys, batch) in enumerate(batches):
+        now = SNAP_NOW + i * 50
+        t = time.perf_counter()
+        got = gpu.get_rate_limits(batch, now_ms=now)
+        gpu_s += time.perf_counter() - t
+        want = cpu.get_rate_limits(batch, now_ms=now)
+        check(resp_tuples(got) == resp_tuples(want),
+              f"sharded Store window {i}: card and CPU engines answer differently")
+    launches = sharded_launches()
+    sharded_state_equal(gpu, cpu, "sharded Store path")
+    check({k: dataclasses.astuple(v) for k, v in stores[0].data.items()}
+          == {k: dataclasses.astuple(v) for k, v in stores[1].data.items()},
+          "the sharded Stores' contents differ")
+    check(stores[0].called == stores[1].called,
+          f"sharded Store calls differ: card {stores[0].called}, CPU {stores[1].called}")
+    check(launches["gather_sharded"] > 0 and launches["inject_sharded"] > 0,
+          f"the sharded Store path's row launches: {launches}")
+    n_req = sum(len(b) for _, b in batches)
+    stage_s = {s: gpu.stats[f"{s}_ns"] / 1e9 for s in EngineStats.STAGES}
+    results["sharded_store"] = dict(requests=n_req, decisions_per_s=n_req / gpu_s,
+                                    stage_s=stage_s, store_calls=dict(stores[0].called),
+                                    launches=launches)
+    tlog(f"  9c Store path: {n_req:,} requests, {n_req / gpu_s:,.0f} decisions/s; answers, "
+         f"tables, Store contents and calls {stores[0].called} equal; launches {launches}")
+    del gpu, cpu
+    gc.collect()
+    return launches
+
+
+def sharded_columnar_run(seed, dev, results):
+    """9d: 8 windows as wire columns through submit_columnar /
+    complete_columnar on the card and the CPU twin, then the same windows'
+    requests cut into submissions through BackendCombiner at depth 3 on the
+    card against depth 1 on the CPU twin."""
+    from gubernator_tpu_torch.service.combiner import BackendCombiner
+
+    batches, _ = request_stream(seed, SHARDED_COL_WINDOWS)
+    gpu, cpu = sharded_engines(dev)
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    col_s = 0.0
+    for i, (_keys, batch) in enumerate(batches):
+        now = NOW + i * 50
+        cols = columnar_cols(batch)
+        answers = []
+        for eng in (gpu, cpu):
+            n = len(batch)
+            outs = (np.zeros(n, np.int32), np.zeros(n, np.int64), np.zeros(n, np.int64),
+                    np.zeros(n, np.int64))
+            t = time.perf_counter()
+            h = eng.submit_columnar(*cols, COL_SLOW, now_ms=now)
+            check(h is not None, "submit_columnar refused a sharded window")
+            left = eng.complete_columnar(h, *outs).tolist()
+            for j, r in zip(left, eng.get_rate_limits([batch[j] for j in left], now_ms=now)):
+                for o, v in zip(outs, (r.status, r.limit, r.remaining, r.reset_time)):
+                    o[j] = v
+            if eng is gpu:  # leftovers included
+                col_s += time.perf_counter() - t
+            answers.append([o.tolist() for o in outs])
+        check(answers[0] == answers[1], f"sharded columnar window {i}: answers differ")
+    sharded_state_equal(gpu, cpu, "sharded columnar path")
+    col_launches = sharded_launches()
+    dk.reset_launch_counts()
+    rowk.reset_launch_counts()
+    # the combiner over fresh engines: submissions of 1-512 requests
+    flat = [r for _, b in batches for r in b]
+    rng = np.random.default_rng(seed + 14)
+    subs, pos = [], 0
+    while pos < len(flat):
+        n = int(np.exp(rng.uniform(0.0, np.log(MAX_SUBMISSION + 1))))
+        subs.append(flat[pos:pos + n])
+        pos += n
+    gpu, cpu = sharded_engines(dev)
+    got = []
+    for eng, depth in ((gpu, PIPE_DEPTH), (cpu, 1)):
+        c = BackendCombiner(eng, depth=depth, scan=PIPE_SCAN)
+        check(c.pipelined == (depth > 1), "the sharded combiner's pipeline is "
+              f"{'on' if c.pipelined else 'off'} at depth {depth}")
+        try:
+            t = time.perf_counter()
+            futs = [c.submit_async(s, sub_now(i)) for i, s in enumerate(subs)]
+            got.append([resp_tuples(f.result(timeout=600)) for f in futs])
+            if eng is gpu:
+                comb_s = time.perf_counter() - t
+                comb_stats = c.stats
+        finally:
+            c.close()
+    check(got[0] == got[1], "the sharded combiner at depth 3 and its CPU twin answer differently")
+    check(comb_stats["pipelined_windows"] > 0, "the sharded combiner pipelined nothing")
+    # depth 3 and depth 1 merge submissions into different windows: the
+    # window counters differ, the answers and the state may not
+    sharded_state_equal(gpu, cpu, "sharded combiner", counters=False)
+    comb_launches = sharded_launches()
+    launches = {k: v + comb_launches[k] for k, v in col_launches.items()}
+    n_req = len(flat)
+    results["sharded_columnar"] = dict(requests=n_req, columnar_decisions_per_s=n_req / col_s,
+                                       combiner_decisions_per_s=n_req / comb_s,
+                                       combiner=dict(comb_stats), launches=launches,
+                                       columnar_launches=col_launches,
+                                       combiner_launches=comb_launches)
+    tlog(f"  9d: {n_req:,} requests as wire columns, {n_req / col_s:,.0f} decisions/s; the "
+         f"same through BackendCombiner depth {PIPE_DEPTH} scan {PIPE_SCAN}: "
+         f"{n_req / comb_s:,.0f} decisions/s ({len(subs)} submissions, "
+         f"{comb_stats['pipelined_windows']} pipelined windows); answers and state equal to "
+         f"the CPU twins; launches {launches}")
+    del gpu, cpu
+    gc.collect()
+    return launches
+
+
+def phase_sharded(seed, dev, results):
+    log(f"== phase 9: the sharded engine, {SHARDS} x {SHARD_ROWS:,} rows "
+        f"({SHARDS * SHARD_ROWS * 64 / 1e6:.0f} MB): the sharded kernels vs their plain "
+        f"versions; ShardedEngine on {SHARDED_WINDOWS} windows with GLOBAL keys, the Store "
+        f"path, the columnar path and the combiner, each against a CPU twin")
+    t0 = time.perf_counter()
+    errs = {}
+    recs = sharded_decide(seed, dev, errs, results) + sharded_rows(seed, dev, errs, results)
+    results["sharded_kernels"] = recs
+    launches = dict.fromkeys(SHARDED_KERNELS, 0)
+    for run in (sharded_engine_run, sharded_store_run, sharded_columnar_run):
+        for k, v in run(seed, dev, results).items():
+            launches[k] += v
+    torch.cuda.empty_cache()
+    tlog(f"  phase 9 in {time.perf_counter() - t0:.1f} s; engine-path launches {launches}")
+    return launches, errs, recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--windows", type=int, default=100)
+    ap.add_argument("--windows", type=int, default=30)
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2933,9 +3492,12 @@ def main(argv=None) -> int:
     pipe_launches = phase_pipeline(args.seed, dev, results)
     persist_launches = phase_persistence(args.seed, dev, results)
     devdir_launches, devdir_errs, devdir_recs = phase_devdir(args.seed, dev, results)
+    shard_launches, shard_errs, shard_recs = phase_sharded(args.seed, dev, results)
 
     kernels = []
     for name in dk.launch_counts:
+        if name in SHARDED_KERNELS:
+            continue
         scan = "_scan_" in name
         main_shape = next(r for r in results["decide_shapes"]
                           if r["kernel"] == name and r["kind"] == "windows"
@@ -2982,10 +3544,32 @@ def main(argv=None) -> int:
         r = next(r for r in devdir_recs if r["kernel"] == name and r["W"] in (None, WINDOW))
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=n, max_abs_err=devdir_errs[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            launches=n, max_abs_err=devdir_errs[name], ms=r["ms"],
+            ms_source=r.get("ms_source", "torch.profiler" if r["ms"] is not None else None),
+            plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             library_device_ms=None, call_ms=r["call_ms"],
             shape=f"C={r['C']}" + (f", W={r['W']}" if r["W"] else "")))
+    # the sharded kernels at the sharded engine's main shapes: the decide at
+    # W = 8192 an owner (K = 32, W = 64 for the scan), the gather and the
+    # inject at m = 64 an owner
+    for name in SHARDED_KERNELS:
+        n = shard_launches[name]
+        check(n > 0, f"{name} was never launched on the sharded engine's path")
+        scan = "_scan_" in name
+        r = next(r for r in shard_recs if r["kernel"] == name and (
+            r.get("m") == 64 if "m" in r else
+            (r["width"], r["scan_k"]) == ((64, 32) if scan else (WINDOW, 0))))
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=n, max_abs_err=shard_errs[name],
+            ms=r["ms"], ms_source=r["ms_source"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+            library_device_ms=r.get("library_device_ms"), call_ms=r["call_ms"],
+            loop_ms=r.get("loop_ms"), loop_call_ms=r.get("loop_call_ms"),
+            shape=(f"R=1, S={SHARDS}, C={SHARD_ROWS}, "
+                   + (f"m={r['m']}" if "m" in r else
+                      ("K=32, W=64" if scan else f"W={WINDOW}")) + " an owner")))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     if args.out:

@@ -29,7 +29,8 @@ file's package, so every tree is read on one yardstick:
   requests) through TREE's Engine on the card, without the CPU twin:
   host microseconds per Engine._apply_inject_rows call that had rows,
   seed_mirror microseconds, decisions per second; then chip_smoke's
-  phase 4 (the GLOBAL sync on the ring), for its ms per sync step.
+  phase 4 (the GLOBAL sync on the ring), for its ms per sync step (the
+  mean of all steps, of all but the first, and the first alone).
 
 Prints the card's line (nvidia-smi name, power limit), then one JSON line
 per tree. Needs one card.
@@ -247,7 +248,8 @@ def child(tree: str, windows: int) -> int:
     engine = _engine(cs, dev, windows)
     glob = {}
     cs.phase_global(0, dev, glob)
-    engine["global_step_ms"] = glob["global"]["step_ms"]
+    for k in ("step_ms", "steady_step_ms", "first_step_ms"):
+        engine[f"global_{k}"] = glob["global"][k]
     rec = dict(tree=tree, card=cs.SMI, decide=decide, rows=recs, bench_rows=probe,
                engine=engine)
     print(json.dumps(rec), flush=True)

@@ -10,7 +10,9 @@ the layouts both packages share:
   i32[.., 2, W] with its i64[256, 2] config table, lean i32[.., W] lane
   words with their i64[128, 4] config table;
 - the GLOBAL sync's GlobalConfig and GlobalMirror;
-- a device-directory engine's state (carry_devdir_state).
+- a device-directory engine's state (carry_devdir_state);
+- a sharded engine's state (carry_sharded_state): its table, each owner's
+  key directory and its GLOBAL registry and mirror.
 
 Nothing here imports JAX: a caller that has jax arrays converts them with
 np.asarray first (or passes them, since np.asarray accepts them).
@@ -29,6 +31,8 @@ from gubernator_tpu_torch.ops.decide import (
     TABLE_ROW_FIELDS,
 )
 from gubernator_tpu_torch.parallel.global_sync import GlobalConfig, GlobalMirror
+from gubernator_tpu_torch.parallel.sharded import _GlobalEntry
+from gubernator_tpu_torch.types import RateLimitReq
 from gubernator_tpu_torch.utils.platform import resolve_device
 
 _NP_TO_TORCH = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
@@ -139,3 +143,88 @@ def carry_devdir_state(engine, fps, touch, table, probe_seq: int,
         engine.state.copy_(table_to_torch(table, engine.device))
         engine._probe_seq = int(probe_seq)
         engine._rounds_since_sweep = int(rounds_since_sweep)
+
+
+_CARRY_FILLER = "\x00carry\x00"  # no request key starts with a NUL byte
+
+
+def _carry_directory(directory, items) -> None:
+    """Give an EMPTY native key directory the keys of `items` ((key, slot)
+    pairs, most recently used first, as NativeKeyDirectory.items() lists
+    them) at the same slots and in the same LRU order, with the free slots
+    handed out in ascending order afterwards (the order a directory that
+    never dropped a key keeps). Every slot is first taken by a filler key;
+    then, oldest first, each key's filler is dropped and the key looked
+    up, which takes exactly the slot just freed; the fillers of the free
+    slots go last, highest slot first."""
+    C = directory.capacity
+    if len(directory):
+        raise ValueError("carry into an empty directory")
+    fill = [f"{_CARRY_FILLER}{i}" for i in range(C)]
+    slots, _ = directory.lookup(fill)
+    if slots != list(range(C)):
+        raise RuntimeError("a fresh directory did not hand out slots 0..C-1 in order")
+    used = set()
+    for key, slot in reversed(list(items)):
+        if not 0 <= slot < C or slot in used:
+            raise ValueError(f"slot {slot} of {key!r} is outside [0, {C}) or taken twice")
+        used.add(slot)
+        directory.drop(fill[slot])
+        got, _ = directory.lookup([key])
+        if got[0] != slot:
+            raise RuntimeError(f"{key!r} took slot {got[0]}, not {slot}")
+    for slot in range(C - 1, -1, -1):
+        if slot not in used:
+            directory.drop(fill[slot])
+
+
+def carry_sharded_state(engine, table, directories, globals_, gfree, gnext: int,
+                        gdelta, mirror) -> None:
+    """Give a FRESH port ShardedEngine the state of a JAX package's
+    ShardedEngine of the same geometry:
+
+    - `table`: its i64[R, S, C, 8] table (numpy, or anything np.asarray
+      takes);
+    - `directories`: each owner's (key, slot) pairs, most recently used
+      first (its directories' items()); see _carry_directory for the free
+      slots;
+    - `globals_`: its GLOBAL registry as (key, entry) pairs in LRU order
+      (its `_globals.items()`), each entry with gidx, owner, req (any
+      object with the request's fields, or None), seen and last_ms;
+    - `gfree`, `gnext`, `gdelta`: its free gidx list, high-water mark and
+      queued hits; `mirror`: its host mirror (status, limit, remaining,
+      reset_time).
+
+    From there both engines, given the same requests, continue bit for
+    bit."""
+    plan = engine.plan
+    want = (plan.n_regions, plan.n_shards, plan.capacity_per_shard, TABLE_ROW_FIELDS)
+    if np.asarray(table).shape != want:
+        raise ValueError(f"the table must be i64{list(want)}, got {np.asarray(table).shape}")
+    directories = list(directories)
+    if len(directories) != plan.n_owners:
+        raise ValueError(f"{len(directories)} directories for {plan.n_owners} owners")
+    G = engine.global_capacity
+    gdelta = np.asarray(gdelta, np.int64)
+    if gdelta.shape != (G,):
+        raise ValueError(f"gdelta must be i64[{G}], got {gdelta.shape}")
+    with engine._lock:
+        engine.state.copy_(table_to_torch(table, engine.device))
+        for directory, items in zip(engine.directories, directories):
+            _carry_directory(directory, items)
+        engine._globals.clear()
+        for key, e in globals_:
+            entry = _GlobalEntry(int(e.gidx), int(e.owner), int(e.last_ms))
+            entry.seen = bool(e.seen)
+            if e.req is not None:
+                r = e.req
+                entry.req = RateLimitReq(
+                    name=r.name, unique_key=r.unique_key, hits=int(r.hits),
+                    limit=int(r.limit), duration=int(r.duration),
+                    algorithm=int(r.algorithm), behavior=int(r.behavior))
+            engine._globals[key] = entry
+        engine._gfree = [int(g) for g in gfree]
+        engine._gnext = int(gnext)
+        engine._gdelta = gdelta.copy()
+        engine._mirror = GlobalMirror(**{f: np.array(getattr(mirror, f), dt)
+                                         for f, dt in _MIRROR_DTYPES.items()})

@@ -29,6 +29,17 @@
 // below 2^31; negative or huge durations take the 64-bit routine. The
 // quotient is the same either way.
 //
+// The owner axis (decide_launch's `owners`): the R x S owner shards of the
+// sharded engine are slices of one i64[R, S, C, 8] table, and one launch
+// decides a window (or a scan) for all of them, as the JAX package's
+// shard_map program is one dispatch (parallel/sharded.py:95-213). Owner o is
+// blockIdx.y: its blocks read its own staging and write its own response,
+// and its table is the C rows at o * C, so slot s of owner 0 and slot s of
+// owner 1 are different rows and every clamp is to the owner's own row C-1.
+// Each (window, owner) takes its own sequence number, hence its own scratch
+// slot for row C-1's published copy. The single-table engines launch one
+// owner.
+//
 // decide_kernel_scan (K windows in order, one launch): the order a scan group
 // needs is only each row's own order across windows, since a lane reads and
 // writes its own row alone and the live slots of one window are distinct. So
@@ -68,7 +79,8 @@
 //   flag, then (after a fence) the new row; a lane past the table reads the
 //   row, fences, reads the flag, and takes the scratch copy when the flag
 //   holds this launch's number. The wrapper allocates the scratch once per
-//   card (kScratchSlots slots, the launch's sequence number picks one);
+//   card (kScratchSlots slots, the launch's sequence number picks one, plus
+//   the owner's index in a sharded launch);
 // - int64 adds and subtracts wrap (done as uint64_t, where signed overflow
 //   would be undefined); divisions floor, as JAX's `//` does;
 // - narrowing casts (i64 -> i32) truncate.
@@ -488,9 +500,16 @@ __global__ void decide_kernel_window(int64_t* table, int64_t C,
                                      const void* __restrict__ packed,
                                      const int64_t* __restrict__ cfg,
                                      void* __restrict__ out, int B, int64_t now,
-                                     int64_t* scratch, int64_t seq) {
+                                     int64_t* scratch, int64_t seq,
+                                     size_t packed_stride, size_t out_stride) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  // owner shard blockIdx.y: its own table, staging, response and number
+  const int owner = blockIdx.y;
+  table += static_cast<int64_t>(owner) * C * kRowFields;
+  packed = static_cast<const char*>(packed) + owner * packed_stride;
+  out = static_cast<char*>(out) + owner * out_stride;
+  seq += owner;
   const int32_t slot = decode_slot<FMT>(packed, 0, B, b);
   Resp o{0, 0, 0, 0};
   if (slot >= 0) {
@@ -656,6 +675,14 @@ decide_kernel_scan(int64_t* table, int64_t C, const void* __restrict__ packed,
                    const int64_t* __restrict__ cfg, void* __restrict__ out,
                    int K, int B, int kc_max, int64_t now) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // owner shard blockIdx.y: its own table, its K windows of staging and of
+  // response; its rows spread over the gridDim.x blocks of its row
+  {
+    const int o = blockIdx.y;
+    table += static_cast<int64_t>(o) * C * kRowFields;
+    packed = static_cast<const char*>(packed) + o * K * window_bytes(FMT, B);
+    out = static_cast<char*>(out) + o * static_cast<size_t>(K) * 4 * B * (FMT == WIDE ? 8 : 4);
+  }
   __shared__ int s_chains, s_cursor, s_live, s_reader, s_c1;
   const ScanLayout L = ScanLayout::make(FMT, kc_max, B);
   void* stage = smem + L.stage;
@@ -946,10 +973,14 @@ int scan_chunk(int fmt, int K, int B, size_t limit) {
 }
 
 template <int FMT>
-int launch(int64_t* table, long long C, const void* packed, const int64_t* cfg, void* out,
-           int K, int B, long long now, int scan, int device, int64_t* scratch,
+int launch(int64_t* table, long long C, int owners, const void* packed, const int64_t* cfg,
+           void* out, int K, int B, long long now, int scan, int device, int64_t* scratch,
            cudaStream_t s) {
-  long long seq = g_seq.fetch_add(K) + 1;
+  if (owners < 1 || owners > kScratchSlots) return static_cast<int>(cudaErrorInvalidValue);
+  // each (window, owner) takes its own number, so one launch's owners
+  // publish row C-1 into distinct scratch slots
+  long long seq = g_seq.fetch_add(static_cast<long long>(K) * owners) + 1;
+  const size_t out_window = static_cast<size_t>(4) * B * (FMT == WIDE ? 8 : 4);
   if (scan) {
     size_t limit = 0;
     const int err = scan_smem_limit<FMT>(device, &limit);
@@ -958,55 +989,66 @@ int launch(int64_t* table, long long C, const void* packed, const int64_t* cfg, 
     if (kc > 0) {
       const int lanes = kc * B;
       const int threads = lanes < kScanThreads ? ((lanes + 31) / 32) * 32 : kScanThreads;
-      const int blocks = g_scan_blocks;
-      decide_kernel_scan<FMT><<<blocks, threads, ScanLayout::make(FMT, kc, B).total, s>>>(
+      const dim3 grid(g_scan_blocks, owners);
+      decide_kernel_scan<FMT><<<grid, threads, ScanLayout::make(FMT, kc, B).total, s>>>(
           table, C, packed, cfg, out, K, B, kc, now);
       return static_cast<int>(cudaGetLastError());
     }
   }
   // one window, or a scan whose single window does not fit on chip: one
-  // launch a window, in stream order
-  const size_t out_window = static_cast<size_t>(4) * B * (FMT == WIDE ? 8 : 4);
+  // launch a window over every owner, in stream order
   const int threads = g_window_threads;
-  for (int k = 0; k < K; ++k, ++seq) {
-    decide_kernel_window<FMT><<<(B + threads - 1) / threads, threads, 0, s>>>(
+  const dim3 grid((B + threads - 1) / threads, owners);
+  for (int k = 0; k < K; ++k, seq += owners) {
+    decide_kernel_window<FMT><<<grid, threads, 0, s>>>(
         table, C, static_cast<const char*>(packed) + k * window_bytes(FMT, B), cfg,
-        static_cast<char*>(out) + k * out_window, B, now, scratch, seq);
+        static_cast<char*>(out) + k * out_window, B, now, scratch, seq,
+        K * window_bytes(FMT, B), K * out_window);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch one decision over `K` windows of `B` lanes on `stream`.
-// scan == 0: one window (K must be 1). scan != 0: K windows in order.
-// `scratch` is the card's i64[kScratchSlots * kScratchWords] published-copy
-// area (zeroed once by the caller, never written by it again).
+// Launch one decision over `K` windows of `B` lanes on `stream`, for each of
+// `owners` shards of one table in ONE launch (a second grid dimension; the
+// single-table engines pass 1). scan == 0: one window (K must be 1).
+// scan != 0: K windows in order. `table` is i64[owners, capacity, 8]; the
+// staging and the response hold each owner's K windows one owner after
+// another, and `cfg` is one config table for all of them. Each owner clamps
+// to its own row capacity - 1 and publishes that row into its own slot of
+// `scratch`, the card's i64[kScratchSlots * kScratchWords] published-copy
+// area (zeroed once by the caller, never written by it again). owners must
+// lie in [1, kScratchSlots].
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
 extern "C" int decide_launch(int device, int fmt, void* table, long long capacity,
-                             const void* packed, const void* cfg, void* out,
+                             int owners, const void* packed, const void* cfg, void* out,
                              int K, int B, long long now, int scan, void* scratch,
                              void* stream) {
   int err = set_device(device);
   if (err != 0) return err;
-  if (!scan && K != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if ((!scan && K != 1) || owners < 1 || owners > kScratchSlots)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* t = static_cast<int64_t*>(table);
   auto* c = static_cast<const int64_t*>(cfg);
   auto* sc = static_cast<int64_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case WIDE:
-      return launch<WIDE>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
+      return launch<WIDE>(t, capacity, owners, packed, c, out, K, B, now, scan, device, sc, s);
     case COMPACT:
-      return launch<COMPACT>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
+      return launch<COMPACT>(t, capacity, owners, packed, c, out, K, B, now, scan, device, sc, s);
     case LEAN:
-      return launch<LEAN>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
+      return launch<LEAN>(t, capacity, owners, packed, c, out, K, B, now, scan, device, sc, s);
     case INTERNED:
-      return launch<INTERNED>(t, capacity, packed, c, out, K, B, now, scan, device, sc, s);
+      return launch<INTERNED>(t, capacity, owners, packed, c, out, K, B, now, scan, device, sc, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The owners one sharded launch may take.
+extern "C" int decide_max_owners() { return kScratchSlots; }
 
 // Words of the published-copy scratch the caller allocates per card.
 extern "C" int decide_scratch_words() { return kScratchSlots * kScratchWords; }

@@ -33,6 +33,21 @@
 //   (Engine.seed_mirror) needs no copy up and no copy back around the
 //   launch, only one wait on the stream.
 //
+// gather_sharded / inject_sharded: replace the JAX package's shard_map
+//   programs make_gather_sharded (parallel/sharded.py:216) and
+//   make_inject_sharded (:243), the sharded engine's Store path. The R x S
+//   owner shards are slices of one i64[R, S, C, 8] table, and one launch
+//   serves every owner (blockIdx.y): owner o's slots index its own C rows.
+//   The gather is gather_kernel with an owner axis (each slot clamped to
+//   [0, C-1] of its own shard). The inject writes all seven fields of each
+//   lane AS GIVEN (unlike inject_rows, which truncates algo and status
+//   through int32, as the single-table engine's caller does) and zeroes
+//   field 7; a lane with slot < 0 or >= C is dropped (pad_to_drop), never
+//   wrapped into the shard's last row. One thread a lane: its seven reads
+//   are coalesced across the warp, its row is four 16-byte stores. Bound:
+//   memory, W * (4 + 56 + 56) bytes an owner for the gather and
+//   W * (4 + 56 + 64) for the inject.
+//
 // row_bump: replaces the Pallas kernel scripts/bench_pallas_rows.py `kernel`
 //   (:36, pallas_call at :89), the row-access probe: +1 to every element of
 //   B distinct rows of an int32[N, 128] table, in place, returning slots[0]
@@ -88,11 +103,17 @@ __global__ void inject_kernel(int64_t* __restrict__ state, int64_t C,
   state[slot * kRowFields + f] = w;
 }
 
+// Owner shard blockIdx.y (0 for one table) gathers from its own C rows at
+// y * C, its own m slots and into its own i64[7, m] block.
 __global__ void gather_kernel(const int64_t* __restrict__ state, int64_t C,
                               const int32_t* __restrict__ slot, int m,
                               int64_t* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m) return;
+  const int64_t o = blockIdx.y;
+  state += o * C * kRowFields;
+  slot += o * m;
+  out += o * kGatherFields * m;
   int64_t s = slot[j];
   s = s < 0 ? 0 : (s >= C ? C - 1 : s);
   const int64_t* row = state + s * kRowFields;
@@ -100,6 +121,24 @@ __global__ void gather_kernel(const int64_t* __restrict__ state, int64_t C,
   for (int f = 0; f < kGatherFields; ++f) {
     out[static_cast<int64_t>(f) * m + j] = row[f];
   }
+}
+
+// One thread a lane of owner blockIdx.y: rows i64[7, W] in field order
+// (read coalesced across lanes), written whole with field 7 zeroed.
+__global__ void inject_sharded_kernel(int64_t* __restrict__ state, int64_t C,
+                                      const int32_t* __restrict__ slot,
+                                      const int64_t* __restrict__ rows, int W) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= W) return;
+  const int64_t o = blockIdx.y;
+  const int64_t s = slot[o * W + j];
+  if (s < 0 || s >= C) return;
+  const int64_t* r = rows + o * kGatherFields * W + j;
+  longlong2* dst = reinterpret_cast<longlong2*>(state + (o * C + s) * kRowFields);
+  dst[0] = make_longlong2(r[0], r[W]);
+  dst[1] = make_longlong2(r[2 * W], r[3 * W]);
+  dst[2] = make_longlong2(r[4 * W], r[5 * W]);
+  dst[3] = make_longlong2(r[6 * W], 0);
 }
 
 __global__ void row_bump_kernel(int4* __restrict__ table, int64_t N,
@@ -143,9 +182,9 @@ int launch_inject(void* state, long long C, const void* inject, int m, void* str
 }
 
 void launch_gather(const void* state, long long C, const void* slot, int m, void* out,
-                   void* stream) {
-  gather_kernel<<<(m + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+                   void* stream, int owners = 1) {
+  const dim3 grid((m + kGatherThreads - 1) / kGatherThreads, owners);
+  gather_kernel<<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(state), C, static_cast<const int32_t*>(slot), m,
       static_cast<int64_t*>(out));
 }
@@ -226,5 +265,28 @@ extern "C" int row_bump_launch(int device, void* table, long long N,
   row_bump_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int4*>(table), N, static_cast<const int32_t*>(slots), B,
       static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sharded gather: `state` is i64[owners, C, 8], `slot` i32[owners, W],
+// `out` i64[owners, 7, W], all on the card; one launch for every owner.
+extern "C" int gather_sharded_launch(int device, const void* state, long long C, int owners,
+                                     const void* slot, int W, void* out, void* stream) {
+  int err = set_device(device);
+  if (err != 0) return err;
+  launch_gather(state, C, slot, W, out, stream, owners);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sharded inject: `slot` i32[owners, W] and `rows` i64[owners, 7, W] on
+// the card into the i64[owners, C, 8] `state`; one launch for every owner.
+extern "C" int inject_sharded_launch(int device, void* state, long long C, int owners,
+                                     const void* slot, const void* rows, int W, void* stream) {
+  int err = set_device(device);
+  if (err != 0) return err;
+  const dim3 grid((W + kGatherThreads - 1) / kGatherThreads, owners);
+  inject_sharded_kernel<<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int64_t*>(state), C, static_cast<const int32_t*>(slot),
+      static_cast<const int64_t*>(rows), W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,11 @@ a full table included. This module binds the parts the engine uses:
   (i32[2, W] + an i64[256, 2] config table) and lean (i32[W] + i64[128, 4])
   staging formats, their config tables kept across windows in an
   InternPrepState / LeanPrepState;
-- fingerprint_batch: the device directory's 63-bit key fingerprints;
+- prep_route_sharded and prep_route_columnar: the sharded engine's
+  one-pass prep, which also routes each lane to its owner shard and looks
+  it up in that owner's directory, over request objects or wire columns;
+- fingerprint_batch: the device directory's 63-bit key fingerprints, and
+  owner_batch: the owner shard of each key;
 - make_key_directory: the engine's factory.
 
 The library is built by g++ at first use into _build/ (ops/_build.py). The
@@ -124,6 +128,18 @@ def load_library() -> ctypes.CDLL:
         lib.fnv1a_fingerprint_batch.argtypes = [
             c.c_char_p, c.c_void_p, c.c_int32, c.c_void_p,
         ]
+        lib.fnv1a_owner_batch.restype = None
+        lib.fnv1a_owner_batch.argtypes = [
+            c.c_char_p, c.c_void_p, c.c_int32, c.c_int32, c.c_void_p,
+        ]
+        # pure C, no CPython API: the CDLL releases the GIL for the pass
+        lib.keydir_prep_route_columnar.restype = c.c_int32
+        lib.keydir_prep_route_columnar.argtypes = [
+            c.c_void_p, c.c_int32, c.c_int32, c.c_char_p, c.c_void_p,
+            c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_int64, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p,
+        ]
         _LIB = lib
         return lib
 
@@ -140,6 +156,11 @@ def load_pydll() -> ctypes.PyDLL:
             lib.keydir_prep_pack_fast.restype = c.c_int32
             lib.keydir_prep_pack_fast.argtypes = [
                 c.c_void_p, c.py_object, c.c_void_p, c.c_int32, c.c_int64,
+                c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+            ]
+            lib.keydir_prep_route_sharded.restype = c.c_int32
+            lib.keydir_prep_route_sharded.argtypes = [
+                c.c_void_p, c.c_int32, c.py_object, c.c_int64,
                 c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
             ]
             _PYLIB = lib
@@ -364,6 +385,77 @@ def prep_pack_lean(directory: "NativeKeyDirectory", n: int,
         lib.keydir_prep_pack_lean, iw.shape[0], directory, n, keys,
         key_off, name_len, hits, limit, duration, algorithm, behavior,
         slow_mask, iw, state, inject)
+
+
+def _route_out(n: int, n_owners: int):
+    """The output arrays of the two routing preps: cols i64[9, n] (zeroed),
+    lane_item i32[n], owner_count i32[n_owners], leftover i32[n] and its
+    count."""
+    return (np.zeros((9, n), np.int64), np.empty(n, np.int32),
+            np.empty(n_owners, np.int32), np.empty(n, np.int32),
+            np.zeros(1, np.int32))
+
+
+def _route_result(n0, cols, lane_item, owner_count, leftover, n_left):
+    if n0 < 0:
+        return n0, None, None, None, None
+    return (n0, cols, lane_item[:n0], owner_count, leftover[:int(n_left[0])])
+
+
+def prep_route_sharded(directories, requests, greg_mask: int):
+    """The sharded one-pass window prep over request objects: validate,
+    first-occurrence split, owner routing (fnv1a % n_owners) and each
+    owner's directory lookup in one C call (keydir_prep_route_sharded).
+
+    Returns (n0, cols, lane_item, owner_count, leftover): `cols` is
+    i64[9, len(requests)] with the first n0 lanes owner-major in the wide
+    staging row order (rows 6 and 7 zero); lane j answers
+    requests[lane_item[j]]; owner o owns the owner_count[o] lanes at
+    offset sum(owner_count[:o]); `leftover` are the item indices the python
+    pipeline runs AFTER this round (invalid, lanes with a bit of
+    `greg_mask`, duplicate occurrences). n0 is PREP_FALLBACK or
+    PREP_OVERCOMMIT on those paths, and the rest None then."""
+    lib = load_pydll()
+    n, n_owners = len(requests), len(directories)
+    handles = (ctypes.c_void_p * n_owners)(*[d._kd for d in directories])
+    out = _route_out(n, n_owners)
+    cols, lane_item, owner_count, leftover, n_left = out
+    n0 = lib.keydir_prep_route_sharded(
+        handles, n_owners, requests, greg_mask, cols.ctypes.data,
+        lane_item.ctypes.data, owner_count.ctypes.data, leftover.ctypes.data,
+        n_left.ctypes.data)
+    return _route_result(n0, *out)
+
+
+def prep_route_columnar(directories, n: int, keys, key_off, name_len,
+                        hits, limit, duration, algorithm, behavior,
+                        slow_mask: int):
+    """prep_route_sharded over the peerlink wire columns (prep_pack_columnar's
+    layout), with the GIL released. Lanes whose behavior has a bit of
+    `slow_mask` come back as leftover. Returns prep_route_sharded's tuple."""
+    lib = load_library()
+    n_owners = len(directories)
+    handles = (ctypes.c_void_p * n_owners)(*[d._kd for d in directories])
+    out = _route_out(n, n_owners)
+    cols, lane_item, owner_count, leftover, n_left = out
+    n0 = lib.keydir_prep_route_columnar(
+        handles, n_owners, n, keys, key_off.ctypes.data, name_len.ctypes.data,
+        hits.ctypes.data, limit.ctypes.data, duration.ctypes.data,
+        algorithm.ctypes.data, behavior.ctypes.data, slow_mask,
+        cols.ctypes.data, lane_item.ctypes.data, owner_count.ctypes.data,
+        leftover.ctypes.data, n_left.ctypes.data)
+    return _route_result(n0, *out)
+
+
+def owner_batch(keys: Sequence[str], n_owners: int) -> np.ndarray:
+    """i32[n]: fnv1a64(key) % n_owners for each key, in C (the batch form
+    of parallel/mesh.py shard_of_key)."""
+    lib = load_library()
+    data, offsets = _pack_keys(keys)
+    out = np.empty(len(keys), np.int32)
+    lib.fnv1a_owner_batch(data, offsets.ctypes.data, len(keys), n_owners,
+                          out.ctypes.data)
+    return out
 
 
 def _pack_keys(keys: Sequence[str]) -> Tuple[bytes, np.ndarray]:

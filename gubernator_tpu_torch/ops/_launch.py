@@ -73,7 +73,7 @@ def cuda_index(t: torch.Tensor, what: str) -> int:
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,
           dims: Sequence[Optional[int]], index: int) -> None:
     """Raise ValueError unless `t` is a contiguous `dtype` tensor with one
-    dimension per entry of `dims` (one to three entries: an int the size
+    dimension per entry of `dims` (one or more entries: an int the size
     must equal, or None for any size) on card `index`, or, for index HOST, in
     host memory. One expression over t.shape, read once: Tensor.size(i)
     costs about three times as much as a tuple index."""
@@ -82,7 +82,9 @@ def check(t: torch.Tensor, what: str, dtype: torch.dtype,
             and t.dtype is dtype and len(shape) == len(dims) and t.is_contiguous()
             and (dims[0] is None or shape[0] == dims[0])
             and (len(dims) < 2 or dims[1] is None or shape[1] == dims[1])
-            and (len(dims) < 3 or dims[2] is None or shape[2] == dims[2])):
+            and (len(dims) < 3 or dims[2] is None or shape[2] == dims[2])
+            and (len(dims) < 4 or all(d is None or n == d
+                                      for n, d in zip(shape[3:], dims[3:])))):
         return
     _refuse(t, what, dtype, dims, index)
 

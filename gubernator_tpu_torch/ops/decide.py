@@ -62,7 +62,11 @@ TABLE_ROW_FIELDS = 8
 launch_counts: Dict[str, int] = {
     f"decide_{form}{fmt}": 0 for form in ("", "scan_")
     for fmt in ("wide", "compact", "lean", "interned")}
-# The same launches by (launch_counts key, K, B): K = 1 for one window.
+# decide_sharded's launches (one for all owners), by format and form
+launch_counts.update({f"decide_sharded_{form}{fmt}": 0 for form in ("", "scan_")
+                      for fmt in ("wide", "lean")})
+# The same launches by (launch_counts key, K, B): K = 1 for one window (B
+# is each owner's lanes for a sharded launch).
 launch_shapes: Dict[Tuple[str, int, int], int] = {}
 
 
@@ -424,10 +428,11 @@ def _load() -> SimpleNamespace:
     if _kernels is None:
         V, I, LL = _launch.VOID_P, _launch.INT, _launch.LONGLONG
         k = _launch.load("decide", {
-            "decide_launch": (I, I, V, LL, V, V, V, I, I, LL, I, V, V),
+            "decide_launch": (I, I, V, LL, I, V, V, V, I, I, LL, I, V, V),
             "decide_tune": (I, I),
             "decide_scan_chunk": (I, I, I, I, V),
         })
+        k.max_owners = k.lib.decide_max_owners()
         k.scratch_words = k.lib.decide_scratch_words()
         _kernels = k
     return _kernels
@@ -440,22 +445,32 @@ def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
     decide_plain), its responses into `out` when given (on that card, of
     the response's dtype and shape). Raises on a tensor it does not take
     or a refused launch."""
-    index = _launch.cuda_index(state, "decide_cuda")
-    _launch.check(state, "table", I64, (None, TABLE_ROW_FIELDS), index)
-    C = state.shape[0]
-    if C == 0:
+    return _launch_decide(fmt, state, packed, cfg, now_ms, scan, out, sharded=False)
+
+
+def _launch_decide(fmt, state, packed, cfg, now_ms, scan, out, sharded):
+    """decide_cuda (one table i64[C, 8], `sharded` False) and
+    decide_sharded_cuda (i64[R, S, C, 8], one launch for the R * S owners,
+    each dim of the staging and response led by R, S): the checks, the
+    launch of csrc/decide.cu's decide_launch and its count."""
+    index = _launch.cuda_index(state, "decide_sharded_cuda" if sharded else "decide_cuda")
+    _launch.check(state, "table", I64, (None,) * (3 if sharded else 1) + (TABLE_ROW_FIELDS,),
+                  index)
+    lead = tuple(state.shape[:2]) if sharded else ()
+    owners = lead[0] * lead[1] if sharded else 1
+    C = state.shape[-2]
+    if C == 0 or owners == 0:
         raise ValueError("decide on an empty table")
     if state.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
-    _launch.check(packed, "staging", _PACKED_DTYPE[fmt], _PACKED_DIMS[fmt, scan], index)
+    _launch.check(packed, "staging", _PACKED_DTYPE[fmt], lead + _PACKED_DIMS[fmt, scan], index)
     if fmt == INTERNED and cfg is not None and cfg.shape[0] < INTERN_MAX_CFG:
         cfg = _pad_interned_cfg(cfg)
     if fmt in _CFG_DIMS:
         _launch.check(cfg, "config table", I64, _CFG_DIMS[fmt], index)
-    shape = packed.shape
-    B = shape[-1]
-    K = shape[0] if scan else 1
-    dims = (K, 4, B) if scan else (4, B)
+    B = packed.shape[-1]
+    K = packed.shape[len(lead)] if scan else 1
+    dims = lead + ((K, 4, B) if scan else (4, B))
     dtype = I64 if fmt == WIDE else I32
     if out is None:
         out = state.new_empty(dims, dtype=dtype)
@@ -464,18 +479,94 @@ def decide_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
     if K == 0 or B == 0:
         return out
     k = _kernels or _load()
+    if owners > k.max_owners:
+        raise ValueError(f"{owners} owners in one sharded launch: at most {k.max_owners}")
     scratch = _scratch.get(index)
     if scratch is None:
         scratch = _scratch[index] = state.new_zeros(k.scratch_words)
     _launch.raise_on(k.decide_launch(
-        index, fmt, state.data_ptr(), C, packed.data_ptr(),
+        index, fmt, state.data_ptr(), C, owners, packed.data_ptr(),
         cfg.data_ptr() if fmt in _CFG_DIMS else None, out.data_ptr(), K, B, int(now_ms),
-        int(scan), scratch.data_ptr(), k.stream(index)), "decide")
-    name = _COUNT_NAMES[fmt, scan]
+        int(scan), scratch.data_ptr(), k.stream(index)),
+        "decide_sharded" if sharded else "decide")
+    _count((_SHARDED_COUNT_NAMES if sharded else _COUNT_NAMES)[fmt, scan], K, B)
+    return out
+
+
+def _count(name: str, K: int, B: int) -> None:
     launch_counts[name] += 1
     shape_key = (name, K, B)
     launch_shapes[shape_key] = launch_shapes.get(shape_key, 0) + 1
-    return out
+
+
+# ------------------------------------------------------------ sharded decide
+# The R x S owner shards of the sharded engine are slices of one
+# i64[R, S, C, 8] table. decide_sharded decides one window (or K in order)
+# for every owner: wide staging i64[R, S, (K,) 9, W] -> i64[R, S, (K,) 4, W],
+# lean lane words i32[R, S, (K,) W] + one i64[128, 4] config table for all
+# owners -> i32[R, S, (K,) 4, W] (the JAX package's make_decide_sharded and
+# its scan and lean forms, parallel/sharded.py:95-213). Each owner applies
+# its own lanes to its own table: a slot >= C reads the owner's own row C-1.
+
+_SHARDED_FORMATS = (WIDE, LEAN)
+_SHARDED_COUNT_NAMES = {(f, scan): f"decide_sharded_{'scan_' if scan else ''}{name}"
+                        for f, name in ((WIDE, "wide"), (LEAN, "lean"))
+                        for scan in (False, True)}
+
+
+def decide_sharded_plain(fmt: int, state: torch.Tensor, packed: torch.Tensor,
+                         cfg: Optional[torch.Tensor], now_ms,
+                         scan: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of decide_sharded, on any device: each
+    owner's view of the table and each of its windows through decide_plain,
+    owner after owner, window after window. A window with no live lane
+    (most owners' windows in a scan of duplicate-key rounds) touches no row
+    and answers every lane as padding (status, limit, remaining and reset
+    0; a compact reset delta -1), so it is answered so without a call.
+    Updates `state` in place."""
+    R, S, C = state.shape[:3]
+    n = R * S
+    tables = state.view(n, C, TABLE_ROW_FIELDS)
+    stage = packed.reshape(n, *packed.shape[2:])
+    if not scan:
+        stage = stage.unsqueeze(1)  # one window an owner
+    K, B = stage.shape[1], stage.shape[-1]
+    slots = stage[:, :, 0, :] if fmt == WIDE else stage
+    if fmt == LEAN:
+        live = ((slots & _LEAN_SLOT_MASK) != _LEAN_PAD).any(-1)
+    else:
+        live = (slots >= 0).any(-1)  # [n, K]
+    out = torch.zeros((n, K, 4, B), dtype=I64 if fmt == WIDE else I32,
+                      device=state.device)
+    if fmt != WIDE:
+        out[:, :, 3, :] = -1
+    for o, k in live.nonzero().tolist():
+        out[o, k] = decide_plain(fmt, tables[o], stage[o, k], cfg, now_ms)
+    return out.view(R, S, 4, B) if not scan else out.view(R, S, K, 4, B)
+
+
+def decide_sharded_cuda(fmt: int, state: torch.Tensor, packed: torch.Tensor,
+                        cfg: Optional[torch.Tensor], now_ms,
+                        scan: bool = False,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/decide.cu on `state`'s card: ONE launch for every owner
+    (same contract as decide_sharded_plain), its responses into `out` when
+    given. Raises on a tensor it does not take or a refused launch."""
+    if fmt not in _SHARDED_FORMATS:
+        raise ValueError("the sharded decide takes the wide and lean formats only")
+    return _launch_decide(fmt, state, packed, cfg, now_ms, scan, out, sharded=True)
+
+
+def decide_sharded(fmt: int, state: torch.Tensor, packed: torch.Tensor,
+                   cfg: Optional[torch.Tensor], now_ms,
+                   scan: bool = False) -> torch.Tensor:
+    """Decide one window (`scan` False) or K windows in order for every
+    owner shard of the i64[R, S, C, 8] table `state`, IN PLACE, in the
+    wide (cfg None) or lean format. The CPU takes the plain version; CUDA
+    takes the one-launch kernel, or raises."""
+    if state.is_cpu:
+        return decide_sharded_plain(fmt, state, packed, cfg, now_ms, scan)
+    return decide_sharded_cuda(fmt, state, packed, cfg, now_ms, scan)
 
 
 def _pad_interned_cfg(cfg: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,15 @@ Three functions, each with a plain version and a kernel in csrc/rows.cu:
   checks that, the kernel trusts it. A slot outside [0, N) is dropped by
   both.
 
+- gather_sharded(state, slot) -> i64[R, S, 7, W] and
+  inject_sharded(state, slot, rows): the sharded engine's Store path over
+  the i64[R, S, C, 8] table, one launch for every owner shard (the JAX
+  package's make_gather_sharded and make_inject_sharded,
+  parallel/sharded.py:216, :243). Owner o's slot i32[W] indexes its own C
+  rows: the gather clamps it to [0, C-1] of that shard; the inject drops a
+  lane with slot < 0 or >= C and writes all seven fields of its row as
+  given (no int32 truncation, unlike inject_rows), field 7 zeroed.
+
 SlabStaging is the streamed snapshot's slab read: no kernel, one
 contiguous copy of table rows into page-locked host memory.
 
@@ -55,7 +64,8 @@ BUMP_ROW = 128  # int32 lanes of a probe row: 512 bytes
 # pinned_counts counts those of them that went through the pinned entry
 # point (operands in page-locked host memory).
 launch_counts: Dict[str, int] = {"inject_rows": 0, "gather_rows": 0,
-                                 "row_bump": 0}
+                                 "row_bump": 0, "gather_sharded": 0,
+                                 "inject_sharded": 0}
 pinned_counts: Dict[str, int] = {"inject_rows": 0, "gather_rows": 0}
 
 
@@ -112,6 +122,8 @@ def _load() -> SimpleNamespace:
             "gather_rows_launch": (I, V, LL, V, I, V, V),
             "gather_rows_pinned_launch": (I, V, LL, V, I, V, V),
             "row_bump_launch": (I, V, LL, V, I, V, V),
+            "gather_sharded_launch": (I, V, LL, I, V, I, V, V),
+            "inject_sharded_launch": (I, V, LL, I, V, V, I, V),
             "rows_stream_synchronize": (V,),
         })
     return _kernels
@@ -339,6 +351,74 @@ def row_bump_cuda(table: torch.Tensor, slots: torch.Tensor,
     return out
 
 
+# ----------------------------------------------------- sharded row access
+
+def _owners(state: torch.Tensor) -> torch.Tensor:
+    R, S, C = state.shape[:3]
+    return state.view(R * S, C, ROW_FIELDS)
+
+
+def gather_sharded_plain(state: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    R, S, W = slot.shape
+    tables, slots = _owners(state), slot.reshape(R * S, W)
+    return torch.stack([gather_rows_plain(tables[o], slots[o])
+                        for o in range(R * S)]).view(R, S, GATHER_FIELDS, W)
+
+
+def inject_sharded_plain(state: torch.Tensor, slot: torch.Tensor,
+                         rows: torch.Tensor) -> None:
+    R, S, W = slot.shape
+    tables = _owners(state)
+    C = tables.shape[1]
+    slots = slot.reshape(R * S, W).to(I64)
+    full = torch.cat([rows.reshape(R * S, GATHER_FIELDS, W).transpose(1, 2),
+                      rows.new_zeros((R * S, W, 1))], dim=2)
+    for o in range(R * S):
+        keep = (slots[o] >= 0) & (slots[o] < C)
+        tables[o].index_copy_(0, slots[o][keep], full[o][keep])
+
+
+def _sharded_operands(state: torch.Tensor, slot: torch.Tensor, what: str):
+    index = _launch.cuda_index(state, what)
+    _launch.check(state, "table", I64, (None, None, None, ROW_FIELDS), index)
+    R, S, C = state.shape[:3]
+    if C == 0:
+        raise ValueError("an empty table")
+    _launch.check(slot, "slots", I32, (R, S, None), index)
+    return index, R * S, C, slot.shape[2]
+
+
+def gather_sharded_cuda(state: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """The sharded gather on state's card: ONE launch for every owner."""
+    index, n, C, W = _sharded_operands(state, slot, "gather_sharded_cuda")
+    out = state.new_empty((state.shape[0], state.shape[1], GATHER_FIELDS, W))
+    if W == 0:
+        return out
+    k = _kernels or _load()
+    _launch.raise_on(k.gather_sharded_launch(index, state.data_ptr(), C, n,
+                                             slot.data_ptr(), W, out.data_ptr(),
+                                             k.stream(index)), "gather_sharded")
+    launch_counts["gather_sharded"] += 1
+    return out
+
+
+def inject_sharded_cuda(state: torch.Tensor, slot: torch.Tensor,
+                        rows: torch.Tensor) -> None:
+    """The sharded inject on state's card: ONE launch for every owner."""
+    index, n, C, W = _sharded_operands(state, slot, "inject_sharded_cuda")
+    _launch.check(rows, "rows", I64, (state.shape[0], state.shape[1], GATHER_FIELDS, W),
+                  index)
+    if W == 0:
+        return
+    if state.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    k = _kernels or _load()
+    _launch.raise_on(k.inject_sharded_launch(index, state.data_ptr(), C, n,
+                                             slot.data_ptr(), rows.data_ptr(), W,
+                                             k.stream(index)), "inject_sharded")
+    launch_counts["inject_sharded"] += 1
+
+
 # ------------------------------------------------------------- dispatchers
 # The CPU takes the plain version; CUDA takes the kernel, or raises.
 
@@ -360,3 +440,15 @@ def row_bump(table: torch.Tensor, slots: torch.Tensor,
     if table.is_cpu:
         return row_bump_plain(table, slots, out)
     return row_bump_cuda(table, slots, out)
+
+
+def gather_sharded(state: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    if state.is_cpu:
+        return gather_sharded_plain(state, slot)
+    return gather_sharded_cuda(state, slot)
+
+
+def inject_sharded(state: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> None:
+    if state.is_cpu:
+        return inject_sharded_plain(state, slot, rows)
+    return inject_sharded_cuda(state, slot, rows)

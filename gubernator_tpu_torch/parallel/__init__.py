@@ -8,6 +8,7 @@ from gubernator_tpu_torch.parallel.global_sync import (
     GlobalMirror,
     make_global_sync,
 )
+from gubernator_tpu_torch.parallel.sharded import ShardedEngine
 
 __all__ = [
     "MeshPlan",
@@ -16,4 +17,5 @@ __all__ = [
     "GlobalConfig",
     "GlobalMirror",
     "make_global_sync",
+    "ShardedEngine",
 ]

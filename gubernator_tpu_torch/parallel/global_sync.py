@@ -2,13 +2,14 @@
 
 The counterpart of the JAX package's parallel/global_sync.py, whose one
 compiled step runs on every chip of a mesh. Here the R x S shards are
-slices of one i64[R, S, C, 8] tensor on one device, and the step walks them
-in turn:
+slices of one i64[R, S, C, 8] tensor on one device:
 
 1. hit aggregation: every shard's local hit deltas for the registered
    global keys are all-reduced, giving the cluster-total hits per key;
 2. owner apply: each shard runs the decision kernel on its own table, with
-   the slot of every key it does not own set to -1 (a padding lane);
+   the slot of every key it does not own set to -1 (a padding lane): one
+   sharded decide for all shards (ops/decide.py decide_sharded, one launch
+   on the card);
 3. broadcast: each shard's response columns, masked to zero where it is
    not the owner, are stacked into one [n_owners, 4G] all-reduce whose sum
    IS the authoritative mirror;
@@ -26,7 +27,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from gubernator_tpu_torch.ops.decide import I32, I64, decide_packed
+from gubernator_tpu_torch.ops.decide import I32, I64, WIDE, decide_sharded
 from gubernator_tpu_torch.ops.ring import ring_all_reduce
 from gubernator_tpu_torch.parallel.mesh import MeshPlan
 from gubernator_tpu_torch.utils.platform import resolve_device
@@ -85,23 +86,21 @@ def make_global_sync(plan: MeshPlan, collectives: str = "psum", device=None):
         for what, t in (("state", state), ("delta", delta), ("cfg.slot", cfg.slot)):
             if t.device != dev:
                 raise ValueError(f"{what} is on {t.device}, the step on {dev}")
-        tables = state.view(n, *state.shape[-2:])  # i64[n, C, 8] views
         G = delta.shape[-1]
         total = reduce(delta.reshape(n, G))  # [n, G], every row the sum
         packed = torch.stack([
             cfg.slot.to(I64), total[0], cfg.limit, cfg.duration,
             cfg.algorithm.to(I64), cfg.behavior.to(I64), cfg.greg_expire,
             cfg.greg_interval, cfg.fresh.to(I64)])  # wide i64[9, G]
-        registered = cfg.slot >= 0
-        masked = []
-        for owner in range(n):
-            mine = (cfg.owner == owner) & registered
-            pk = packed.clone()
-            pk[0] = torch.where(mine, pk[0], -1)
-            pk[1] = total[owner]
-            out = decide_packed(tables[owner], pk, now)  # i64[4, G]
-            masked.append(torch.where(mine, out, 0).reshape(4 * G))
-        summed = reduce(torch.stack(masked))[0].view(4, G)
+        owners = torch.arange(n, dtype=cfg.owner.dtype, device=dev)
+        mine = (cfg.owner[None, :] == owners[:, None]) & (cfg.slot >= 0)  # [n, G]
+        pk = packed.expand(n, 9, G).clone()
+        pk[:, 0] = torch.where(mine, pk[:, 0], -1)
+        pk[:, 1] = total
+        out = decide_sharded(WIDE, state, pk.view(*state.shape[:2], 9, G), None,
+                             now)  # one launch for every owner
+        masked = torch.where(mine[:, None, :], out.view(n, 4, G), 0).view(n, 4 * G)
+        summed = reduce(masked)[0].view(4, G)
         mirror = GlobalMirror(
             status=summed[0].to(I32),
             limit=summed[1],

@@ -11,6 +11,7 @@ owner in both packages.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -31,6 +32,14 @@ class MeshPlan:
     @property
     def n_owners(self) -> int:
         return self.n_regions * self.n_shards
+
+    @property
+    def capacity(self) -> int:
+        return self.n_owners * self.capacity_per_shard
+
+    def owner_coords(self, owner: int) -> Tuple[int, int]:
+        """(region, shard) of a linear owner index (mesh.py:100)."""
+        return divmod(owner, self.n_shards)
 
 
 def shard_of_key(key: str, n_owners: int) -> int:

@@ -422,7 +422,8 @@ def _library(calls):
     def launch(*args):
         calls.append(args)
         return 0
-    return SimpleNamespace(decide_launch=launch, stream=lambda index: 7, scratch_words=1024)
+    return SimpleNamespace(decide_launch=launch, stream=lambda index: 7, scratch_words=1024,
+                           max_owners=64)
 
 
 _I32, _I64 = torch.int32, torch.int64
@@ -504,9 +505,9 @@ def test_cuda_decide_wrapper_counts_its_launch(monkeypatch, fmt, scan, staging, 
     assert got is out
     assert {k: v for k, v in td.launch_counts.items() if v} == {key: 1}
     assert td.launch_shapes == {(key, 4 if scan else 1, 16): 1}
-    (index, f, _t, C, _p, _c, _o, K, B, now, sc, _s, stream), = calls
-    assert (index, f, C, K, B, now, sc, stream) == (0, fmt, 64, 4 if scan else 1, 16, NOW,
-                                                    int(scan), 7)
+    (index, f, _t, C, owners, _p, _c, _o, K, B, now, sc, _s, stream), = calls
+    assert (index, f, C, owners, K, B, now, sc, stream) == (0, fmt, 64, 1, 4 if scan else 1,
+                                                            16, NOW, int(scan), 7)
 
 
 @pytest.mark.parametrize("kc", [0, 2, 32])

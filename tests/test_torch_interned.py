@@ -451,7 +451,8 @@ def _library(calls):
     def launch(*args):
         calls.append(args)
         return 0
-    return SimpleNamespace(decide_launch=launch, stream=lambda index: 7, scratch_words=1024)
+    return SimpleNamespace(decide_launch=launch, stream=lambda index: 7, scratch_words=1024,
+                           max_owners=64)
 
 
 _I32 = torch.int32
@@ -484,6 +485,6 @@ def test_interned_wrapper_counts_its_launch(monkeypatch, scan, staging, key):
     assert td.decide_cuda(td.INTERNED, _fake_cuda(), _fake_cuda(dtype=_I32, shape=staging),
                           cfg, NOW, scan, out) is out
     assert {k: v for k, v in td.launch_counts.items() if v} == {key: 1}
-    (index, fmt, _t, C, _p, cfg_ptr, _o, K, B, now, sc, _s, stream), = calls
-    assert (index, fmt, C, cfg_ptr, K, B, now, sc, stream) == (
-        0, td.INTERNED, 64, 4096, 4 if scan else 1, 16, NOW, int(scan), 7)
+    (index, fmt, _t, C, owners, _p, cfg_ptr, _o, K, B, now, sc, _s, stream), = calls
+    assert (index, fmt, C, owners, cfg_ptr, K, B, now, sc, stream) == (
+        0, td.INTERNED, 64, 1, 4096, 4 if scan else 1, 16, NOW, int(scan), 7)
