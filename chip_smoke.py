@@ -59,14 +59,17 @@ Run from the root of the repository. Phases, each fatal on failure:
    rows (the engine's form, timed as a host round trip beside
    torch.from_numpy(a).to(dev) + index_copy_), and gather at m in {1, 64,
    8192} on a populated 10,000,001-row table (dropped, clamped and
-   int32-overflowing lanes); the pinned inject in both its forms, by value
-   (rows in the launch's parameters, m <= 448) and mapped, at m in {1, 16,
-   64, 448, 449, 4096, 8192}, with the slots -1, C - 1 and C; the reuse check:
-   64 pinned injects of each form from one reused InjectStaging, the host
+   int32-overflowing lanes); the pinned inject in its three forms, by value
+   (rows in the launch's parameters, m <= 448), mapped, and copied up into
+   the staging's device scratch (m >= the library's copy_min), at m in {1,
+   16, 64, 448, 449, 1024, 2048, 3072, 4096, 8192} and copy_min - 1 and
+   copy_min, with the slots -1, C - 1 and C, in the form m picks and in
+   every other form the library takes at that m; the reuse check: 64
+   pinned injects of each form from one reused InjectStaging, the host
    rewriting it between launches with no wait but the staging's own (a
-   mapped inject's), and rewriting it whole right after each by-value
-   launch, behind a busy stream, must leave the table equal to the plain
-   version's of the rows as launched; the gather's pinned forms, by value
+   mapped inject's or a copy's), and rewriting it whole right after each
+   by-value launch, behind a busy stream, must leave the table equal to the
+   plain version's of the rows as launched; the gather's pinned forms, by value
    (m <= 64) and mapped, at m in {1, 16, 64, 65, 4096} with the slots -1,
    C - 1, C and C + 8, through the public wrapper and the engine's entry;
    row_bump into a caller's out on an
@@ -113,15 +116,19 @@ Run from the root of the repository. Phases, each fatal on failure:
    equal, injects and gathers all through the pinned entry points; and
    rows_for_keys, device_hit_counts and resolve_slots at 1,000 keys against
    the twin;
-8. the device directory: (8a) the probe kernel (csrc/devdir.cu) against
-   its plain version on fingerprint and stamp columns of 10,000,001
-   positions made from --seed (about half occupied, a region filled
-   solid, half of it stamped this batch) at W in {64, 1024, 8192}, lanes
-   of matches, new keys, keys based in the solid region and distinct keys
-   of one base, and padding; with and without eviction, and at 5 and 16
-   positions; slot, fresh, retry, both columns and the staging's rows 0
+8. the device directory: (8a) the probe kernel (csrc/devdir.cu, one
+   cooperative launch) against its plain version on fingerprint and stamp
+   columns of 10,000,001 positions made from --seed (about half occupied, a
+   region filled solid, half of it stamped this batch) at W in {64, 1024,
+   8192}, lanes of matches, new keys, keys based in the solid region and
+   distinct keys of one base, and padding; with and without eviction, and
+   at 5 and 16 positions; then the ordering stimuli of ops/devdir.py
+   (ordering_stimulus) at 10,000,001, 4096, 16 and 5 positions and B in
+   {64, 8192}; slot, fresh, retry, both columns and the staging's rows 0
    and 8 bit-equal; the vacancy sweep at 10,000,001 positions; each timed
-   against its plain version and its bound; (8b) DevDirEngine(device=
+   against its plain version and its bound, the probe warm and cold (L2
+   flushed before every launch) beside the empty kernel launched as it
+   is; (8b) DevDirEngine(device=
    "cuda", capacity=10_000_001, widths 64-8192) after warmup() on phase
    3's first 24 windows against a DevDirEngine(device="cpu") twin
    (responses, columns, table and EngineStats equal) and the host-directory
@@ -258,11 +265,14 @@ GATHER_M = (1, 64, 8192)  # phase 3 gathers 1 slot per seed_mirror
 # the pinned forms at their class edges (the library's by-value limits, 64
 # slots and 448 rows, ops/rows.py by_value_max; phase 5 checks each m's form
 # and launches by form): the by-value size classes up to the largest, that
-# class + 1 (the mapped form) and 4096; the inject also at WINDOW, a
-# restore's chunk. Literals, so that ab_rows.py can run this file's helpers
-# on a tree whose library has no such limits.
+# class + 1 (the mapped form) and 4096; the inject also at 1024-3072, where
+# the copy up overtakes the mapped read (the library's copy_min, measured
+# from ab_rows.py's cold rows at these m), and at WINDOW, a restore's chunk.
+# Literals, so that ab_rows.py can run this file's helpers on a tree whose
+# library has no such limits.
 PINNED_GATHER_M = (1, 16, 64, 65, 4096)
-PINNED_INJECT_M = (1, 16, 64, 448, 449, 4096, WINDOW)
+PINNED_INJECT_M = (1, 16, 64, 448, 449, 1024, 2048, 3072, 4096, WINDOW)
+INJECT_FORMS = ("by_value", "mapped", "copy")
 # the host link's rate each way: PCIe 5.0 x16, the H100 SXM's host
 # interface (NVIDIA's H100 data sheet: "PCIe Gen5: 128 GB/s", both ways)
 LINK_BYTES_PER_S = 64e9
@@ -308,14 +318,17 @@ SOURCES = {**{name: "gubernator_tpu_torch/csrc/decide.cu" for name in dk.launch_
            **{name: "gubernator_tpu_torch/csrc/devdir.cu" for name in ddk.launch_counts}}
 # the shape and form the row entries of the kernels line are timed at: the
 # main path's own (phase 3 injects up to LONE_KEYS rows and gathers 1 slot,
-# both from page-locked host memory); row_bump's is the probe's BATCH
-# and each mapped form: the inject at a restore's chunk of WINDOW rows, the
-# gather at 4096 (the Store path's gathers of up to WINDOW slots)
-ROW_MAIN_M = {"inject_rows": LONE_KEYS, "gather_rows": 1, "inject_rows_mapped": WINDOW,
+# both from page-locked host memory); row_bump's is the probe's BATCH;
+# the inject's copy form at a restore's chunk of WINDOW rows, its mapped
+# form at the largest m of PINNED_INJECT_M that is mapped (the Store path's
+# injects of 1,140-2,446 rows), set in main(); the mapped gather at 4096
+# (the Store path's gathers of up to WINDOW slots)
+ROW_MAIN_M = {"inject_rows": LONE_KEYS, "gather_rows": 1, "inject_rows_copy": WINDOW,
               "gather_rows_mapped": 4096}
 ROW_MAIN_FORM = {"inject_rows": "by_value", "gather_rows": "by_value", "row_bump": "device",
-                 "inject_rows_mapped": "mapped", "gather_rows_mapped": "mapped"}
-INJECT_KEYS = ("inject_rows", "inject_rows_by_value", "inject_rows_mapped")
+                 "inject_rows_mapped": "mapped", "inject_rows_copy": "copy",
+                 "gather_rows_mapped": "mapped"}
+INJECT_KEYS = ("inject_rows", "inject_rows_by_value", "inject_rows_mapped", "inject_rows_copy")
 REUSE_INJECTS = 64  # pinned injects from one staging buffer in the reuse check
 
 
@@ -1119,15 +1132,17 @@ def phase_engine(seed, n_windows, dev, results):
     check(launches["inject_rows"] > 0 and launches["gather_rows"] > 0,
           f"the lone path launched no row kernel: {launches}")
     forms = {f"{name}_{form}": launches[f"{name}_{form}"]
-             for name in ("inject_rows", "gather_rows") for form in ("by_value", "mapped")}
+             for name, names in (("inject_rows", INJECT_FORMS),
+                                 ("gather_rows", ("by_value", "mapped")))
+             for form in names}
     for name in ("inject_rows", "gather_rows"):
         check(pinned[name] == launches[name],
               f"{name}: {launches[name]} launches, {pinned[name]} through the pinned entry point")
-        check(forms[f"{name}_by_value"] + forms[f"{name}_mapped"] == launches[name],
+        check(sum(n for k, n in forms.items() if k.startswith(name)) == launches[name],
               f"{name}: {launches[name]} launches, by form {forms}")
-    check(staging_waits <= forms["inject_rows_mapped"],
+    check(staging_waits <= forms["inject_rows_mapped"] + forms["inject_rows_copy"],
           f"{staging_waits} waits on the inject staging, {forms['inject_rows_mapped']} "
-          "mapped injects")
+          f"mapped injects and {forms['inject_rows_copy']} copied up")
     check(injected["calls"] == launches["inject_rows"],
           f"{injected['calls']} injects with rows, {launches['inject_rows']} inject launches")
     stats = gpu.stats.as_dict()
@@ -1469,29 +1484,51 @@ def inject_edge_stimuli(rng, C, m, n):
     return host
 
 
+def inject_form(kern, staging, m, form):
+    """The pinned inject of the staging's first m rows in `form`, whatever
+    form m picks: the library's entry point called as ops/rows.py calls it,
+    with the form named here (no path of the package can name one). Records
+    no event and counts nothing: phase 5 holds every form at every m with
+    it, and ab_rows.py times the mapped and copy forms at every m."""
+    k = rowk._kernels or rowk._load()
+    index = kern.get_device()
+    _launch.raise_on(k.inject_rows_pinned_launch(
+        index, kern.data_ptr(), kern.shape[0], staging.rows.data_ptr(), m, k.stream(index),
+        None, rowk._INJECT_FORM[form], int(staging.checked),
+        staging.scratch.data_ptr() if form == "copy" else None), f"inject_rows ({form})")
+
+
 def pinned_inject(rng, kern, plain, dev):
     """The inject's pinned forms, as the engine runs them: the rows in the
     page-locked staging (rowk.InjectStaging), by value up to by_value_max
     rows (copied into the launch's parameters), mapped above (read by the
-    kernel through their mapped address). An unpinned host inject is
-    refused, through the public wrapper and from a staging built over
-    pageable memory, in both forms; bit-equal to inject_rows_plain at every m of
-    PINNED_INJECT_M (slots -1, C - 1, C and dropped and int32-overflowing
-    lanes); then timed: device ms per launch (torch.profiler: all the
-    launch ran on the device, a copy up included) and, on the
-    host clock, ms per round trip from a numpy i64[m, 8] to the rows in the
+    kernel through their mapped address), copied up into the staging's
+    device scratch from copy_min rows (the form edges checked). An unpinned
+    host inject is refused, through the public wrapper and from a staging
+    built over pageable memory, in every form; bit-equal to
+    inject_rows_plain at every m of PINNED_INJECT_M and at copy_min - 1 and
+    copy_min (slots -1, C - 1, C and dropped and int32-overflowing lanes),
+    in the form m picks through the staging and in every other form the
+    library takes at that m through its entry point (inject_form); then
+    timed in the form m picks: device ms per launch (torch.profiler: all
+    the launch ran on the device, a copy up included) and, on the host
+    clock, ms per round trip from a numpy i64[m, 8] to the rows in the
     table (copied into the staging, launched, one wait on the stream) as
     call_ms, beside the plain version and the yardstick
     torch.from_numpy(a).to(dev) followed by index_copy_ of the prepared rows,
     with the same wait. Returns records and the largest difference."""
     C, index = kern.shape[0], kern.get_device()
-    check([rowk.pinned_form("inject_rows", m) for m in PINNED_INJECT_M]
-          == ["by_value"] * 4 + ["mapped"] * 3, "PINNED_INJECT_M misses the class edge")
+    top, low = rowk.by_value_max("inject_rows"), rowk.copy_min()
+    forms = [rowk.pinned_form("inject_rows", m) for m in PINNED_INJECT_M]
+    check(forms == sorted(forms, key=INJECT_FORMS.index) and set(forms) == set(INJECT_FORMS)
+          and [rowk.pinned_form("inject_rows", m) for m in (top, top + 1, low - 1, low)]
+          == ["by_value", "mapped", "mapped", "copy"] and top in PINNED_INJECT_M
+          and top + 1 in PINNED_INJECT_M,
+          f"PINNED_INJECT_M misses a form's edge: {dict(zip(PINNED_INJECT_M, forms))}")
     staging = rowk.InjectStaging.allocate(max(PINNED_INJECT_M), dev)
-    top = rowk.by_value_max("inject_rows")
-    pageable = rowk.InjectStaging(torch.zeros((top + 1, rowk.ROW_FIELDS), dtype=torch.int64),
-                                  staging.done)
-    for m in (1, top + 1):  # both forms refuse pageable memory, from either entry
+    pageable = rowk.InjectStaging(torch.zeros((low, rowk.ROW_FIELDS), dtype=torch.int64),
+                                  staging.done, staging.scratch[:low])
+    for m in (1, top + 1, low):  # every form refuses pageable memory, from either entry
         for what, run in (("inject", lambda: rowk.inject_rows_cuda(
                 kern, torch.zeros((m, rowk.ROW_FIELDS), dtype=torch.int64))),
                           ("staging", lambda: pageable.launch(kern, m))):
@@ -1502,7 +1539,7 @@ def pinned_inject(rng, kern, plain, dev):
             else:
                 check(False, f"pinned inject m={m} took an unpinned host {what}")
     recs, err = [], 0
-    for m in PINNED_INJECT_M:
+    for m in sorted(set(PINNED_INJECT_M) | {low - 1, low}):
         form = rowk.pinned_form("inject_rows", m)
         host = inject_edge_stimuli(rng, C, m, 16)
         on_card = [torch.from_numpy(a).to(dev) for a in host]
@@ -1517,6 +1554,25 @@ def pinned_inject(rng, kern, plain, dev):
               f"pinned inject m={m}: not launched in the {form} form")
         err = max(err, max_abs_err(kern, plain))
         check(torch.equal(kern, plain), f"pinned inject m={m} ({form}): tables differ")
+        held = [form]
+        for other in INJECT_FORMS:
+            if other == form or (other == "by_value" and m > top):
+                continue
+            for a, d in zip(host[4:6], on_card[4:6]):
+                staging.free()[:m] = a
+                inject_form(kern, staging, m, other)
+                torch.cuda.synchronize()  # read before the next rows are written
+                rowk.inject_rows_plain(plain, d)
+            err = max(err, max_abs_err(kern, plain))
+            check(torch.equal(kern, plain), f"pinned inject m={m} ({other}, through the "
+                  "entry point): tables differ")
+            held.append(other)
+        check(rowk.launch_counts == {**before, "inject_rows": before["inject_rows"] + 4,
+                                     f"inject_rows_{form}": before[f"inject_rows_{form}"] + 4},
+              f"pinned inject m={m}: the entry point's launches were counted")
+        if m not in PINNED_INJECT_M:
+            log(f"  inject_rows ({form}) m={m:5d}: bit-equal in the forms {held}")
+            continue
         lib_in = [index_copy_rows(d, C) for d in on_card]
 
         def run_k(i):
@@ -1542,7 +1598,7 @@ def pinned_inject(rng, kern, plain, dev):
             call_ms=call_us / 1e3, plain_ms=host_us(run_p, 200) / 1e3,
             library_ms=lib_us / 1e3, library_device_ms=profiled_ms(run_lib, 32),
             library="torch.from_numpy(a).to(dev) + index_copy_", bound_ms=b_ms, bound_by=b_by,
-            bytes=m * 64, link_bytes=m * 64))
+            bytes=m * 64, link_bytes=m * 64, forms_held=held))
     plain.copy_(kern)
     return recs, err, staging
 
@@ -1550,28 +1606,30 @@ def pinned_inject(rng, kern, plain, dev):
 def inject_reuse(rng, kern, plain, staging, dev):
     """REUSE_INJECTS pinned injects from one staging buffer, back to back
     behind a stream kept busy for about a millisecond, in each form:
-    LONE_KEYS rows a launch (by value) and by_value_max + 1 (mapped).
-    Before each, the host writes new rows into staging.free() (which waits
-    on the staging's event only for a mapped inject before) and launches,
-    with no wait of its own; after each by-value launch it rewrites the
-    whole buffer at once with rows of other slots, which the table must not
-    show. The table must equal the plain version's after the same injects in
-    order, and only the mapped launches may have waited. The mapped sequence
+    LONE_KEYS rows a launch (by value), by_value_max + 1 (mapped) and
+    copy_min (copied up). Before each, the host writes new rows into
+    staging.free() (which waits on the staging's event only for a mapped
+    inject or a copy before) and launches, with no wait of its own; after
+    each by-value launch it rewrites the whole buffer at once with rows of
+    other slots, which the table must not show. The table must equal the
+    plain version's after the same injects in order, and only the mapped
+    and copied launches may have waited. The mapped and copied sequences
     with the rows written straight into the buffer, skipping free()'s wait,
-    is logged beside it: it shows whether the hazard the wait guards
+    are logged beside them: they show whether the hazard the wait guards
     against occurs on this card. Returns the largest difference, and
-    whether that hazard showed."""
+    whether that hazard showed, by form."""
     C = kern.shape[0]
-    hazard, err = False, 0
-    for m in (LONE_KEYS, rowk.by_value_max("inject_rows") + 1):
-        mapped = rowk.pinned_form("inject_rows", m) == "mapped"
+    hazard, err = {}, 0
+    for m in (LONE_KEYS, rowk.by_value_max("inject_rows") + 1, rowk.copy_min()):
+        form = rowk.pinned_form("inject_rows", m)
+        pending = form != "by_value"
         seq = [inject_stimulus(rng, C, m, "cpu").numpy() for _ in range(REUSE_INJECTS)]
         poison = inject_stimulus(rng, C, len(staging.rows_np), "cpu").numpy()
         plain.copy_(kern)
-        unguarded = kern.clone() if mapped else None
+        unguarded = kern.clone() if pending else None
         staging.free()  # the launches before this sequence have run
         waits = staging.waits
-        for guarded in (True, False) if mapped else (True,):
+        for guarded in (True, False) if pending else (True,):
             table = kern if guarded else unguarded
             torch.cuda.synchronize()
             torch.cuda._sleep(2_000_000)  # the injects queue behind ~1 ms of work
@@ -1581,26 +1639,26 @@ def inject_reuse(rng, kern, plain, staging, dev):
                 if guarded:
                     staging.launch(table, m)
                 else:
-                    rowk.inject_rows_pinned(table, staging.rows, m, None, True)
-                if not mapped:
+                    rowk.inject_rows_pinned(table, staging.rows, m, None, True, staging.scratch)
+                if not pending:
                     staging.rows_np[:] = poison  # at once: the launch took its rows
             torch.cuda.synchronize()
         for a in seq:
             rowk.inject_rows_plain(plain, torch.from_numpy(a).to(dev))
         torch.cuda.synchronize()
         err = max(err, max_abs_err(kern, plain))
-        check(torch.equal(kern, plain), f"inject reuse m={m}: the table does not hold the rows "
-              "as launched (tables differ)")
+        check(torch.equal(kern, plain), f"inject reuse m={m} ({form}): the table does not "
+              "hold the rows as launched (tables differ)")
         waited = staging.waits - waits
-        check(waited == (REUSE_INJECTS - 1 if mapped else 0),
-              f"inject reuse m={m}: free() waited {waited} times")
-        if mapped:
-            hazard = not torch.equal(unguarded, plain)
+        check(waited == (REUSE_INJECTS - 1 if pending else 0),
+              f"inject reuse m={m} ({form}): free() waited {waited} times")
+        if pending:
+            hazard[form] = not torch.equal(unguarded, plain)
             del unguarded
-            log(f"  inject reuse, mapped: {REUSE_INJECTS} injects of {m} rows from one "
+            log(f"  inject reuse, {form}: {REUSE_INJECTS} injects of {m} rows from one "
                 f"staging behind a busy stream, {waited} waits in free(): table equal to the "
                 f"plain version's; without the staging's wait the table "
-                f"{'differs' if hazard else 'is equal too'}")
+                f"{'differs' if hazard[form] else 'is equal too'}")
         else:
             log(f"  inject reuse, by value: {REUSE_INJECTS} injects of {m} rows from one "
                 "staging behind a busy stream, no wait in free(), the whole buffer rewritten "
@@ -2735,7 +2793,8 @@ def probe_bound(fps_before, h, won, evict, staged):
 def hold_probe(fk, tk, fp, tp, h, seq, evict, what, errs):
     """One probe through the kernel (with a staging) and the plain version
     on twin columns: slot, fresh, retry, both columns and the staging's
-    rows 0 and 8 bit-equal, or the run fails. Returns the winners."""
+    rows 0 and 8 bit-equal, or the run fails. Returns the winners and the
+    kernel's outputs."""
     name = "probe_assign_evict" if evict else "probe_assign"
     W = h.shape[0]
     if evict:
@@ -2755,7 +2814,53 @@ def hold_probe(fk, tk, fp, tp, h, seq, evict, what, errs):
         check(torch.equal(a, b), f"{what}: {field} differs")
     check(torch.equal(fk, fp), f"{what}: fingerprints differ")
     check(not evict or torch.equal(tk, tp), f"{what}: stamps differ")
-    return int(want[1].sum())
+    return int(want[1].sum()), got
+
+
+ORDERING_C = (CAPACITY, 4096, *PROBE_SMALL_C)  # 4096: every window overlaps at B = 8192
+ORDERING_B = (64, WINDOW)
+
+
+def ordering_probes(seed, dev, errs):
+    """8a: the ordering stimuli (ops/devdir.py ordering_stimulus, the
+    tests' differential's own) through the kernel and the plain version, at
+    every C of ORDERING_C and B of ORDERING_B, both lane orders (flip), with
+    and without eviction: bit-equal (hold_probe). At C >= 4096 the
+    structures hold on the kernel's outputs: a lane whose oldest candidate
+    another lane matches takes its second oldest (retries without
+    eviction); of four keys claiming one empty position the highest lane
+    wins; a lane loses its claim to a higher lane whose window shares only
+    that position. Returns the probes held."""
+    n = 0
+    for C in ORDERING_C:
+        for B in ORDERING_B:
+            for flip in (False, True):
+                st = ddk.ordering_stimulus(C, B, 1000, seed=seed + C + B + int(flip), flip=flip)
+                h = torch.from_numpy(st.hashes).to(dev)
+                for evict in (True, False):
+                    fk = torch.from_numpy(st.fps).to(dev, copy=True)
+                    tk = torch.from_numpy(st.touch).to(dev, copy=True)
+                    fp, tp = fk.clone(), tk.clone()
+                    what = (f"ordering {'probe_assign_evict' if evict else 'probe_assign'} "
+                            f"C={C} B={B} flip={flip}")
+                    _won, got = hold_probe(fk, tk, fp, tp, h, st.seq, evict, what, errs)
+                    n += 1
+                    del fk, tk, fp, tp
+                    if C < 4096:
+                        continue
+                    slot, fresh = got[0].cpu().numpy(), got[1].cpu().numpy()
+                    for x, y, q, second in st.cases["victim"]:
+                        check(slot[y] == q and (int(slot[x]), bool(fresh[x]))
+                              == ((second, True) if evict else (-1, False)),
+                              f"{what}: lane {x} against lane {y}'s match of its oldest "
+                              f"candidate {q}: slots {slot[x]}, {slot[y]}")
+                    claimers, pos = st.cases["contention"]
+                    check([int(slot[i]) for i in claimers] == [-1, -1, -1, pos],
+                          f"{what}: claims of position {pos}: {[int(slot[i]) for i in claimers]}")
+                    a, b, p = st.cases["window_loss"]
+                    check((int(slot[a]), int(slot[b])) == (-1, p),
+                          f"{what}: lanes {a} < {b} claiming {p}: slots {slot[a]}, {slot[b]}")
+    return n
 
 
 def devdir_kernels(seed, dev, errs, results):
@@ -2764,6 +2869,8 @@ def devdir_kernels(seed, dev, errs, results):
     rng = np.random.default_rng(seed + 8)
     recs = []
     seq = 1000
+    index = dev.index or 0
+    flush = l2_flush(dev)
     for C in (CAPACITY, *PROBE_SMALL_C):
         fk, tk, solid = devdir_columns(seed, C, seq + 1, dev)
         fp, tp = fk.clone(), tk.clone()
@@ -2773,8 +2880,8 @@ def devdir_kernels(seed, dev, errs, results):
                 seq += 1
                 h = probe_hashes(rng, fk, solid, W)
                 before = fk.clone() if C == CAPACITY else None
-                won = hold_probe(fk, tk, fp, tp, h, seq, evict,
-                                 f"{name} C={C} W={W}", errs)
+                won, _got = hold_probe(fk, tk, fp, tp, h, seq, evict,
+                                       f"{name} C={C} W={W}", errs)
                 if C != CAPACITY:
                     continue
                 bound = probe_bound(before, h, won, evict, staged=evict)  # as run_k runs
@@ -2797,20 +2904,37 @@ def devdir_kernels(seed, dev, errs, results):
 
                 call_ms = event_ms(run_k, 64)
                 ms = profiled_ms(run_k, 32, "probe_", per_call=True)
+                cold_ms = profiled_ms(run_k, 32, "probe_", per_call=True, flush_each=flush)
+                grid, threads = ddk.probe_grid(index, W, evict)
+                floor_ms = profiled_ms(lambda i: ddk.probe_floor_cuda(index, W, evict), 32,
+                                       "probe_empty", flush_each=flush)
+                barrier_ms = profiled_ms(lambda i: ddk.probe_floor_cuda(index, W, evict, True),
+                                         32, "probe_empty", flush_each=flush)
                 plain_ms = event_ms(run_p, 8)
                 seq = base + 200
                 fp.copy_(fk)  # the timing runs moved the two apart
                 tp.copy_(tk)
-                rec = dict(kernel=name, C=C, W=W, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                rec = dict(kernel=name, C=C, W=W, ms=ms, cold_ms=cold_ms, floor_ms=floor_ms,
+                           barrier_ms=barrier_ms, grid=grid, threads=threads, call_ms=call_ms,
+                           plain_ms=plain_ms,
                            winners=won, **bound)
                 recs.append(rec)
                 tlog(f"  {name:18s} C={C} W={W:5d}: bit-equal ({bound['active']} active, "
                      f"{bound['matched']} matched, {won} claims won, {bound['victim_lanes']} "
-                     f"lanes with neither match nor empty); kernel {fms(ms)} ms on the device (3 "
-                     f"launches), {call_ms:.4f} ms per wrapper call; plain {plain_ms:.4f} ms; "
-                     f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
+                     f"lanes with neither match nor empty); kernel {fms(ms)} ms on the device "
+                     f"warm, {fms(cold_ms)} cold (L2 flushed before every launch; one "
+                     f"cooperative launch of {grid} blocks of {threads}; the empty kernel "
+                     f"launched so {fms(floor_ms)}, with the two barriers {fms(barrier_ms)}, "
+                     f"cold), "
+                     f"{call_ms:.4f} ms per wrapper call; plain "
+                     f"{plain_ms:.4f} ms; bound {bound['bound_ms']:.6f} ms ({bound['bound_by']})")
         log(f"  probe at C={C}: every width bit-equal, with and without eviction")
         del fk, tk, fp, tp
+    n = ordering_probes(seed, dev, errs)
+    log(f"  ordering stimuli: {n} probes at C in {ORDERING_C}, B in {ORDERING_B}, both lane "
+        "orders, with and without eviction: bit-equal; at C >= 4096 every structure held "
+        "(matches stamped before victims, the highest claimer winning)")
+    del flush
     # the sweep, on a populated table
     table = populate_table(CAPACITY, seed, dev)
     fk, _tk, _solid = devdir_columns(seed + 1, CAPACITY, NOW, dev)
@@ -4253,11 +4377,14 @@ def main(argv=None) -> int:
         library_device_ms=ring_main["library_device_ms"], call_ms=ring_main["call_ms"],
         shape=f"S={GLOBAL_SHARDS}, L={ring_main['L']}"))
     # the pinned row kernels by form: "inject_rows" and "gather_rows" are the
-    # by-value forms (the lone path's), "*_mapped" the mapped ones; the main
-    # path launches no row kernel with operands on the card
-    for name in ("inject_rows", "inject_rows_mapped", "gather_rows", "gather_rows_mapped",
-                 "row_bump"):
-        base = name.replace("_mapped", "")
+    # by-value forms (the lone path's), "*_mapped" the mapped ones,
+    # "inject_rows_copy" the inject copied up; the main path launches no row
+    # kernel with operands on the card
+    ROW_MAIN_M["inject_rows_mapped"] = max(
+        m for m in PINNED_INJECT_M if rowk.pinned_form("inject_rows", m) == "mapped")
+    for name in ("inject_rows", "inject_rows_mapped", "inject_rows_copy", "gather_rows",
+                 "gather_rows_mapped", "row_bump"):
+        base = name.replace("_mapped", "").replace("_copy", "")
         key = f"{base}_{ROW_MAIN_FORM[name]}" if base != "row_bump" else name
         n = (bump_launches if name == "row_bump"
              else eng_launches[key] + pipe_launches[key] + persist_launches[key]
@@ -4285,7 +4412,8 @@ def main(argv=None) -> int:
             ms_source=r.get("ms_source", "torch.profiler" if r["ms"] is not None else None),
             plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            library_device_ms=None, call_ms=r["call_ms"],
+            library_device_ms=None, call_ms=r["call_ms"], cold_ms=r.get("cold_ms"),
+            floor_ms=r.get("floor_ms"), grid=r.get("grid"), threads=r.get("threads"),
             shape=f"C={r['C']}" + (f", W={r['W']}" if r["W"] else "")))
     # the sharded kernels at the sharded engine's main shapes: the decide at
     # W = 8192 an owner (K = 32, W = 64 for the scan), the gather and the

@@ -48,7 +48,23 @@ file's package, so every tree is read on one yardstick:
   launch, one wait), beside their library calls (state[slot, :7].tolist();
   torch.from_numpy(a).to(dev) + index_copy_) timed both ways and, where the
   tree has one, the empty kernel on the launch's grid with its parameter
-  block (rows.pinned_floor_cuda);
+  block (rows.pinned_floor_cuda); where the tree's inject has a copy form
+  (rows.copy_min), the mapped and copy forms at every m through the
+  library's entry point (chip_smoke.inject_form), cold, and the copy up
+  alone (one page-locked copy_ of the m rows into the staging's scratch);
+- probe: the device directory's probe (probe_cuda) with and without
+  eviction at C = 10,000,001 and W = 64, 1024 and 8192 on phase 8a's
+  columns and hashes (16 sets cycled), as the engine calls it (eviction:
+  the staging and a caller's retry; without: the caller's three outputs):
+  device ms per call, cold (torch.profiler, L2 flushed before every
+  call, every kernel the call launches summed) and the device span of a
+  call (its first kernel's start to its last kernel's end, the gaps between
+  launches counted), beside, where the tree has
+  them, the empty cooperative kernel on the probe's grid, the same with its
+  two grid barriers, and the grid's blocks; ms per wrapper call (CUDA
+  events); and host microseconds per probe_cuda call (2,000 calls) beside
+  the same ctypes call of the entry point alone with its operands ready,
+  the difference being the wrapper's checks and operand reads;
 - the Store path: chip_smoke's phase-7b stream (STORE_WINDOWS windows
   through TREE's Engine with a MockStore holding phase 7's buckets, no
   CPU twin): decisions per second and host microseconds per
@@ -58,8 +74,8 @@ file's package, so every tree is read on one yardstick:
   alone at m = 64, 1024 and WINDOW random slots, host microseconds per
   call, the median of 7 runs of 50 calls (rows_for_keys: 20) each.
 
---parts picks some of these (decide, rows, engine, cold_rows, store; all
-by default). Prints the card's line (nvidia-smi name, power limit), then one
+--parts picks some of these (decide, rows, engine, cold_rows, store,
+probe; all by default). Prints the card's line (nvidia-smi name, power limit), then one
 JSON line per tree. Needs one card.
 """
 
@@ -356,11 +372,13 @@ def _pinned_inject(cs, rowk, kern, rng, flush):
     the class edges, cold: device ms per launch of rows already in the
     staging (all it runs on the device, a copy up included), the round trip (rows copied in, launched, one wait) on the host
     clock, the library call torch.from_numpy(a).to(dev) + index_copy_ timed
-    the same ways, the floor."""
+    the same ways, the floor; where the tree has the copy form, both the
+    mapped and the copy form at every m, and the copy up alone."""
     C, dev = kern.shape[0], kern.device
     k = cs.ROW_STIMULI
     staging = rowk.InjectStaging.allocate(max(cs.PINNED_INJECT_M), dev)
     plain = torch.empty_like(kern)
+    forms = hasattr(rowk, "copy_min")
     recs = []
     for m in cs.PINNED_INJECT_M:
         host = [cs.inject_stimulus(rng, C, m, "cpu").numpy() for _ in range(k)]
@@ -381,10 +399,20 @@ def _pinned_inject(cs, rowk, kern, rng, flush):
         lib = dict(library_device_ms=cs.profiled_ms(run_lib, 32, flush_each=flush),
                    library_round_trip_ms=cs.host_us(run_lib, 2000) / 1e3)
         staging.free()[:m] = host[0]
-        recs.append(dict(kernel="inject_rows", form="pinned", m=m,
-                         floor_ms=_pinned_floor(cs, rowk, "inject_rows", m),
-                         ms=cs.profiled_ms(launch, 32, flush_each=flush),
-                         round_trip_ms=cs.host_us(round_trip, 2000) / 1e3, **lib))
+        rec = dict(kernel="inject_rows", form="pinned", m=m,
+                   floor_ms=_pinned_floor(cs, rowk, "inject_rows", m),
+                   ms=cs.profiled_ms(launch, 32, flush_each=flush),
+                   round_trip_ms=cs.host_us(round_trip, 2000) / 1e3, **lib)
+        if forms:
+            rec["picks"] = rowk.pinned_form("inject_rows", m)
+            for form in ("mapped", "copy"):
+                rec[f"{form}_ms"] = cs.profiled_ms(
+                    lambda i: cs.inject_form(kern, staging, m, form), 32, flush_each=flush)
+            rec["copy_up_ms"] = cs.profiled_ms(
+                lambda i: staging.scratch[:m].copy_(staging.rows[:m], non_blocking=True), 32,
+                flush_each=flush)
+            torch.cuda.synchronize()
+        recs.append(rec)
     del plain
     return recs
 
@@ -440,7 +468,99 @@ def _store(cs, dev):
     return rec
 
 
-PARTS = ("decide", "rows", "engine", "cold_rows", "store")
+def _span_ms(fn, iters, substr, flush):
+    """Mean device milliseconds from the start of a call's first kernel whose
+    name holds `substr` to the end of its last (torch.profiler's kernel
+    timestamps), over `iters` calls, the L2 flushed before each: the span
+    counts the gaps between a call's launches, which the sum of their
+    device times leaves out. None when the trace does not split evenly."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            flush()
+            fn(i)
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if substr in e.name and e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if not ev or len(ev) % iters:
+        return None
+    n = len(ev) // iters
+    return float(np.mean([ev[k * n + n - 1].time_range.end - ev[k * n].time_range.start
+                          for k in range(iters)])) / 1e3
+
+
+def _probe(cs, dev):
+    """The tree's probe_cuda at phase 8a's widths, cold, with its floor,
+    wrapper call and host split."""
+    from gubernator_tpu_torch.ops import devdir as ddk
+
+    C = cs.CAPACITY
+    flush = cs.l2_flush(dev)
+    fk, tk, solid = cs.devdir_columns(3, C, 1001, dev)
+    rng = np.random.default_rng(15)
+    k = ddk._kernels or ddk._load()
+    recs = []
+    for W in cs.PROBE_W:
+        hs = [cs.probe_hashes(rng, fk, solid, W) for _ in range(16)]
+        pk = torch.zeros((9, W), dtype=torch.int64, device=dev)
+        slot = torch.empty(W, dtype=torch.int32, device=dev)
+        fresh, retry = (torch.empty(W, dtype=torch.bool, device=dev) for _ in range(2))
+        sc = ddk._probe_scratch(0, C, W, fk)
+        for evict in (True, False):
+            seq = [2000]
+
+            def run_k(i):
+                seq[0] += 1
+                if evict:
+                    ddk.probe_cuda(fk, tk, hs[i % 16], seq[0], pk, (None, None, retry))
+                else:
+                    ddk.probe_cuda(fk, None, hs[i % 16], 0, None, (slot, fresh, retry))
+
+            ptrs = [h.data_ptr() for h in hs]
+            fixed = (fk.data_ptr(), tk.data_ptr() if evict else None, C)
+            outs = ((sc.lanes.data_ptr(), None, None, retry.data_ptr(), pk.data_ptr())
+                    if evict else (sc.lanes.data_ptr(), slot.data_ptr(), fresh.data_ptr(),
+                                   retry.data_ptr(), None))
+            stream = k.stream(0)
+
+            def entry(i):  # the ctypes call alone, its operands ready
+                sc.tag += 1
+                seq[0] += 1
+                k.devdir_probe_launch(0, *fixed, ptrs[i % 16], W, seq[0], int(evict),
+                                      sc.claims.data_ptr(), sc.tag, *outs, stream)
+
+            rec = dict(kernel="probe_assign_evict" if evict else "probe_assign", C=C, W=W,
+                       ms=cs.profiled_ms(run_k, 32, "probe_", per_call=True, flush_each=flush),
+                       span_ms=_span_ms(run_k, 32, "probe_", flush),
+                       call_ms=cs.event_ms(run_k, 64))
+            if hasattr(ddk, "probe_floor_cuda"):
+                grid = ddk.probe_grid(0, W, evict)
+                rec.update(grid=grid[0] if isinstance(grid, tuple) else grid,
+                           threads=grid[1] if isinstance(grid, tuple) else 256,
+                           floor_ms=cs.profiled_ms(
+                               lambda i: ddk.probe_floor_cuda(0, W, evict), 32, "_empty",
+                               flush_each=flush),
+                           barrier_ms=cs.profiled_ms(
+                               lambda i: ddk.probe_floor_cuda(0, W, evict, True), 32, "_empty",
+                               flush_each=flush))
+            torch.cuda.synchronize()
+            call_us = _median_us(cs, run_k, calls=2000, runs=3)
+            torch.cuda.synchronize()
+            entry_us = _median_us(cs, entry, calls=2000, runs=3)
+            torch.cuda.synchronize()
+            rec.update(host_call_us=call_us, host_entry_us=entry_us,
+                       host_checks_us=call_us - entry_us)
+            recs.append(rec)
+    del fk, tk, flush
+    torch.cuda.empty_cache()
+    return recs
+
+
+PARTS = ("decide", "rows", "engine", "cold_rows", "store", "probe")
 
 
 def child(tree: str, windows: int, parts=PARTS) -> int:
@@ -471,6 +591,8 @@ def child(tree: str, windows: int, parts=PARTS) -> int:
         rec["cold_rows"] = _cold_rows(cs, dev)
     if "store" in parts:
         rec["store"] = _store(cs, dev)
+    if "probe" in parts:
+        rec["probe"] = _probe(cs, dev)
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -12,8 +12,9 @@
 //   emits the row), so no atomics are needed.
 //   Bound: memory, m * 128 bytes; at the engine's m <= a few dozen rows the
 //   launch dominates. The engine's rows lie in page-locked host memory
-//   (inject_rows_pinned_launch), and there the inject has two forms, chosen
-//   by m alone (the wrapper picks it against rows_by_value_max, ops/rows.py):
+//   (inject_rows_pinned_launch), and there the inject has three forms, chosen
+//   by m alone (the wrapper picks it against rows_by_value_max and
+//   rows_inject_copy_min, ops/rows.py):
 //   - by value, m <= 448: the launcher copies the m rows on the host into
 //     the launch's parameter block (a __grid_constant__ struct of a size
 //     class: 16, 64 or 448 rows, 1, 4 or 28 KB; the block holds up to
@@ -31,19 +32,30 @@
 //     all three at m = 1 (PERF.md §6). An empty kernel with the same
 //     parameter block takes 0.83-0.87 us at every class: the block's way
 //     to the card costs nothing that shows.
-//   - mapped, m > 448 (inject_kernel): the kernel reads the rows through
-//     their mapped address, so each read crosses the host link. Every input
-//     word is read exactly once, in one coalesced load: one thread per row
-//     field, eight neighbouring threads on one 64-byte row; the slot and the
-//     next field come from the row's lane 0 and the next lane by shuffle,
-//     not by second reads (on an H100 the mapped launch took 2.3-2.6 us at
-//     m <= 64 this way, against 3.5-4.1 us with the second read and 3.5-4.3
-//     us with one thread per row and four 16-byte loads). One
-//     cudaMemcpyAsync of the rows into a device scratch and the same kernel
-//     there took, all device time with L2 flushed, 4.28 us at m = 449
-//     against 3.25-3.28, 9.21-9.42 against 10.30-10.54 at m = 4096 and
-//     14.4-16.2 against 18.7-22.7 at m = 8192: no form wins at every m, so
-//     the mapped read stays the one form above 448 (PERF.md §6).
+//   - mapped, 448 < m < kInjectCopyMin (inject_kernel): the kernel reads the
+//     rows through their mapped address, so each read crosses the host
+//     link as a small read from the SMs. Every input word is read exactly
+//     once, in one coalesced load: one thread per row field, eight
+//     neighbouring threads on one 64-byte row; the slot and the next field
+//     come from the row's lane 0 and the next lane by shuffle, not by
+//     second reads (on an H100 the mapped launch took 2.3-2.6 us at m <= 64
+//     this way, against 3.5-4.1 us with the second read and 3.5-4.3 us with
+//     one thread per row and four 16-byte loads).
+//   - copy, m >= kInjectCopyMin: one cudaMemcpyAsync of the m rows into the
+//     caller's device scratch (a DMA over the link in large transfers),
+//     the caller's event recorded right after it (the host rows are free
+//     once they are on the card), then the same inject_kernel over the
+//     scratch, on the same stream. The scratch is reused in stream order
+//     only: a later copy into it queues behind every kernel that reads it.
+//   Mapped reads beat the copy's fixed cost at a few hundred rows and lose
+//   to the DMA's rate at thousands. On an H100 at 700 W, all device time
+//   with L2 flushed before every launch (ab_rows.py --parts cold_rows, two
+//   children, PERF.md §6), mapped / copy: m = 449 3.38-3.50 / 4.46-4.53 us,
+//   1024 4.91-4.95 / 5.57-5.67, 2048 7.27-7.48 / 7.27-7.28, 3072
+//   9.66-9.97 / 8.66-8.73, 4096 11.85-12.19 / 9.94-10.23, 8192
+//   20.89-21.73 / 15.09-15.20 (the copy up alone 13.45-13.62 of it);
+//   kInjectCopyMin is the least m at which the copy measured below the
+//   mapped read in both children: 3072 (at 2048 one child read them level).
 //   The same inject_kernel serves rows on the card (inject_rows_launch).
 //
 // gather_rows: replaces `_gather_rows` (:86, jitted at :137). Reads the 7
@@ -158,6 +170,12 @@ constexpr int kValueThreads = 256;  // the by-value kernels' blocks: whole warps
 // gives it to the wrapper, which picks the form by m).
 constexpr int kGatherValueSmall = 1, kGatherValueMax = 64;  // slots
 constexpr int kInjectValueSmall = 16, kInjectValueMid = 64, kInjectValueMax = 448;  // rows
+// The least m the pinned inject copies up instead of reading mapped
+// (rows_inject_copy_min gives it to the wrapper): measured, see above.
+constexpr int kInjectCopyMin = 3072;  // rows
+
+// The pinned inject's forms, as inject_rows_pinned_launch takes them.
+constexpr int kFormMapped = 0, kFormByValue = 1, kFormCopy = 2;
 
 template <int N>
 struct SlotBlock {
@@ -430,28 +448,41 @@ extern "C" int inject_rows_launch(int device, void* state, long long C,
 }
 
 // The same inject with `inject` (i64[m, 8]) in page-locked host memory, in
-// the form the caller picks by m: `by_value` (m <= 448) copies the rows into
-// the launch's parameters, so they are consumed when this call returns;
-// otherwise the kernel reads them through their device address. `done`,
-// when not null, is a cudaEvent_t recorded on `stream` after the launch
-// (the engine waits on it before it rewrites those rows). `checked`: the
-// caller vouches that `inject` is page-locked (see device_address); with 0
-// the address is looked up, in either form, and a lookup's error (memory
-// that is not page-locked) is returned before any launch. Else as
-// inject_rows_launch; cudaErrorInvalidValue for a by-value m above 448.
+// the `form` the caller picks by m: kFormByValue (m <= 448) copies the rows
+// into the launch's parameters, so they are consumed when this call
+// returns; kFormMapped has the kernel read them through their device
+// address; kFormCopy copies them into `scratch` (at least m rows of i64[R, 8]
+// on the card) with one cudaMemcpyAsync and runs the kernel there. `done`,
+// when not null, is a cudaEvent_t recorded on `stream` after the mapped
+// launch or after the copy (the engine waits on it before it rewrites those
+// rows). `checked`: the caller vouches that `inject` is page-locked (see
+// device_address); with 0 the address is looked up, in every form, and a
+// lookup's error (memory that is not page-locked) is returned before any
+// launch. Else as inject_rows_launch; cudaErrorInvalidValue for an unknown
+// form, a by-value m above 448 or a copy without a scratch.
 extern "C" int inject_rows_pinned_launch(int device, void* state, long long C, void* inject,
-                                         int m, void* stream, void* done, int by_value,
-                                         int checked) {
+                                         int m, void* stream, void* done, int form, int checked,
+                                         void* scratch) {
   int err = set_device(device);
   if (err != 0) return err;
+  if (form < kFormMapped || form > kFormCopy || (form == kFormByValue && m > kInjectValueMax) ||
+      (form == kFormCopy && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   void* inject_dev = nullptr;
-  if (!(by_value && checked)) {
+  if (form == kFormMapped || !checked) {
     const cudaError_t e = device_address(device, checked, inject, &inject_dev);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (!by_value) return launch_inject(state, C, inject_dev, m, stream, done);
-  if (m > kInjectValueMax) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (form == kFormMapped) return launch_inject(state, C, inject_dev, m, stream, done);
+  if (form == kFormCopy) {
+    cudaError_t e = cudaMemcpyAsync(scratch, inject, static_cast<size_t>(m) * kRowFields *
+                                    sizeof(int64_t), cudaMemcpyHostToDevice, s);
+    if (e == cudaSuccess && done != nullptr) e = cudaEventRecord(static_cast<cudaEvent_t>(done), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return launch_inject(state, C, scratch, m, stream, nullptr);
+  }
   auto* table = static_cast<int64_t*>(state);
   const auto* rows = static_cast<const int64_t*>(inject);
   if (m <= kInjectValueSmall) {
@@ -518,6 +549,10 @@ extern "C" int gather_rows_pinned_launch(int device, const void* state, long lon
 extern "C" int rows_by_value_max(int inject) {
   return inject ? kInjectValueMax : kGatherValueMax;
 }
+
+// The least m a pinned inject copies up (kFormCopy); the wrapper picks the
+// form by m against it and rows_by_value_max.
+extern "C" int rows_inject_copy_min() { return kInjectCopyMin; }
 
 // Wait for the work queued on `stream` (one stream, never the whole card).
 extern "C" int rows_stream_synchronize(void* stream) {

@@ -34,12 +34,15 @@ slot stages through its own page-locked buffers (ops/staging.py), copies up
 and back without blocking, and collect waits on the slot's event alone.
 Mirror rows go in through csrc/rows.cu's inject with no copy: the key
 directory writes them into a page-locked i64[max_width, 8] buffer the engine
-allocates once (ops/rows.py InjectStaging); up to 448 of them go to the card
-in the launch's parameters, and more are read by the kernel there through
-their mapped address, in which case the buffer is handed to the directory
-again only after the last inject that reads it has run (an event per such
-inject), since a scan group may look up, and inject, many windows before its
-one wait. seed_mirror's one-slot gather, and the Store path's gathers, take
+allocates once, beside a device scratch of the same shape (ops/rows.py
+InjectStaging); up to 448 of them go to the card in the launch's
+parameters, more are read by the kernel there through their mapped address,
+and from the library's copy_min up (a restore's chunks) one copy moves them
+into the scratch and the kernel reads them there (the threshold measured on
+an H100, PERF.md §6). After a mapped inject or a copy the buffer is handed
+to the directory again only once the inject or the copy that reads it has
+run (an event per such inject), since a scan group may look up, and inject,
+many windows before its one wait. seed_mirror's one-slot gather, and the Store path's gathers, take
 their slots from, and write their rows to, two page-locked host buffers the
 engine allocates once (GatherBuffers): no copy either way, one wait on the
 stream. A restore writes each chunk's rows into the same inject staging; a

@@ -19,15 +19,20 @@ slot with an open-addressing probe; the slot never goes back to the host.
 Every entry point takes tensors on either device: on the CPU it runs the
 plain PyTorch version; on CUDA it launches the hand-written kernels of
 csrc/devdir.cu through ops/_launch.py, or raises. It never falls back to the
-plain version there. Unlike the JAX functions, which return new columns,
+plain version there. The probe is one cooperative launch, its orderings
+barriers inside the kernel (the block's own when one block holds the
+batch, else the grid's); a cooperative launch the card refuses raises
+too. Unlike the JAX functions, which return new columns,
 these update `fps` and `touch` IN PLACE and return the per-lane outputs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from gubernator_tpu_torch.ops import _launch
@@ -174,6 +179,20 @@ _kernels: Optional[SimpleNamespace] = None
 # than any earlier launch's on the words, so no launch clears them.
 _scratch: Dict[int, SimpleNamespace] = {}
 _MAX_LANES = 1 << 20  # a claim's tag keeps the lane in 20 bits
+# what the entry point returns, before any launch, when the card cannot run
+# the probe's cooperative grid (CUDA's cudaErrorNotSupported and
+# cudaErrorCooperativeLaunchTooLarge)
+_COOPERATIVE_REFUSED = {801: "the card takes no cooperative launch",
+                        720: "the probe's grid cannot be co-resident on the card"}
+
+
+def _raise_probe(err: int, what: str) -> None:
+    """RuntimeError for a refused probe launch, naming a cooperative
+    refusal."""
+    if err:
+        text = _kernels.devdir_error_string(err).decode()
+        why = _COOPERATIVE_REFUSED.get(err, "the cooperative launch was refused")
+        raise RuntimeError(f"{what}: {why} (CUDA error {err}: {text})")
 
 
 def _load() -> SimpleNamespace:
@@ -182,8 +201,12 @@ def _load() -> SimpleNamespace:
         V, I, LL = _launch.VOID_P, _launch.INT, _launch.LONGLONG
         _kernels = _launch.load("devdir", {
             "devdir_probe_launch": (I, V, V, LL, V, I, LL, I, V, LL, V, V, V, V, V, V),
+            "devdir_probe_grid": (I, I, I, V),
+            "devdir_probe_floor_launch": (I, I, I, I, V),
             "devdir_refresh_launch": (I, V, V, LL, LL, V),
+            "devdir_error_string": (I,),
         })
+        _kernels.devdir_error_string.restype = ctypes.c_char_p
     return _kernels
 
 
@@ -202,7 +225,8 @@ def _probe_scratch(index: int, C: int, B: int, like: torch.Tensor) -> SimpleName
 def probe_cuda(fps: torch.Tensor, touch: Optional[torch.Tensor], hashes: torch.Tensor,
                seq, packed: Optional[torch.Tensor] = None,
                out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
-    """Launch csrc/devdir.cu's probe on `fps`' card: probe_assign_evict when
+    """Launch csrc/devdir.cu's probe on `fps`' card, one cooperative launch
+    of one kernel: probe_assign_evict when
     `touch` is given, probe_assign (no eviction, `seq` unused) when it is
     None. Updates `fps` (and `touch`) in place and returns (slot i32[B],
     fresh bool[B], retry bool[B]), into `out` when given. With `packed`, a
@@ -239,7 +263,7 @@ def probe_cuda(fps: torch.Tensor, touch: Optional[torch.Tensor], hashes: torch.T
     sc = _probe_scratch(index, C, B, fps)
     sc.tag += 1
     slot, fresh, retry = out
-    _launch.raise_on(k.devdir_probe_launch(
+    _raise_probe(k.devdir_probe_launch(
         index, fps.data_ptr(), None if touch is None else touch.data_ptr(), C,
         hashes.data_ptr(), B, int(seq), int(touch is not None), sc.claims.data_ptr(), sc.tag,
         sc.lanes.data_ptr(), None if slot is None else slot.data_ptr(),
@@ -247,6 +271,29 @@ def probe_cuda(fps: torch.Tensor, touch: Optional[torch.Tensor], hashes: torch.T
         None if packed is None else packed.data_ptr(), k.stream(index)), "devdir_probe")
     launch_counts["probe_assign_evict" if touch is not None else "probe_assign"] += 1
     return out
+
+
+def probe_grid(index: int, B: int, evict: bool) -> Tuple[int, int]:
+    """The probe's cooperative grid at B lanes on card `index`: its blocks
+    and their threads (one block when B * 16 threads fit one; else the
+    smallest block size whose blocks fit one an SM; never more blocks than
+    can be co-resident). Raises when the card cannot run it."""
+    k = _kernels or _load()
+    threads = ctypes.c_int(0)
+    blocks = k.devdir_probe_grid(index, B, int(evict), ctypes.byref(threads))
+    if blocks <= 0:
+        _raise_probe(-blocks, "devdir_probe_grid")
+    return blocks, threads.value
+
+
+def probe_floor_cuda(index: int, B: int, evict: bool, barriers: bool = False) -> None:
+    """An empty kernel launched as the probe of B lanes is (the same
+    cooperative grid, probe_grid): the floor under its device time; with
+    `barriers`, the probe's two barriers and nothing else. Counted nowhere:
+    no path launches it."""
+    k = _kernels or _load()
+    _raise_probe(k.devdir_probe_floor_launch(index, B, int(evict), int(barriers),
+                                             k.stream(index)), "devdir_probe_floor")
 
 
 def refresh_cuda(fps: torch.Tensor, table: torch.Tensor, now_ms) -> None:
@@ -302,3 +349,116 @@ def refresh_vacancies(fps: torch.Tensor, table: torch.Tensor, now_ms) -> None:
         refresh_vacancies_plain(fps, table, now_ms)
     else:
         refresh_cuda(fps, table, now_ms)
+
+
+# ------------------------------------------------------- ordering stimuli
+
+ORDERING_MIN_LANES = 64  # the lanes the structured cases take, at least
+_SPAN = 1 << 38  # key = base + C * r, r < _SPAN: below 2^63 at C = 10,000,001
+
+
+def ordering_stimulus(C: int, B: int, seq: int, seed: int, flip: bool = False
+                      ) -> SimpleNamespace:
+    """Numpy columns and hashes that hold the probe to its two orderings
+    (the test's differential and chip_smoke.py phase 8a both run them):
+
+    - victim: a lane x whose window is full (no match, no empty) and whose
+      oldest candidate q is matched in the same batch by another lane y, so
+      the match's stamp must land before x picks its victim (x takes its
+      second oldest, `second`). Three pairs (x, y): lane 0 against lane B - 1
+      (y above x; with `flip`, x = B - 1 and y = 0, y below), and two in the
+      middle, y above x and y below x.
+    - contention: four distinct keys of one probe base whose first empty is
+      one position `pos`: they all claim it and the highest lane wins.
+    - window_loss: a lane a whose window ends at its first empty p, and a
+      higher lane b whose window starts there: two windows that share only
+      p; both claim it, b wins, a retries.
+
+    The rest of the batch is filler: matches of occupied positions, new
+    keys, keys of one base (contention), padding (0) and negated keys, kept
+    out of the structured positions where C leaves room (C >= 512); at a
+    smaller C the structures overlap each other and the filler, and only
+    the differential holds. Occupied positions hold keys whose probe starts
+    0-3 positions before them; stamps lie below `seq` (> 17). Returns
+    SimpleNamespace(fps, touch, hashes (i64 arrays), seq, cases), `cases`
+    naming the lanes and positions of each structure (positions mod C)."""
+    if B < ORDERING_MIN_LANES:
+        raise ValueError(f"ordering stimuli take at least {ORDERING_MIN_LANES} lanes, got {B}")
+    rng = np.random.default_rng(seed)
+    D = PROBE_DEPTH
+
+    def key(base):
+        return int(base) % C + C * int(rng.integers(1, _SPAN))
+
+    def keys_at(pos):  # keys whose probe starts 0-3 positions before pos
+        pos = np.asarray(pos, np.int64)
+        return ((pos - rng.integers(0, 4, pos.shape)) % C
+                + C * rng.integers(1, _SPAN, pos.shape)).astype(np.int64)
+
+    fps = np.where(rng.random(C) < 0.5, keys_at(np.arange(C)), 0).astype(np.int64)
+    touch = rng.integers(0, seq, C).astype(np.int64)
+    h = np.zeros(B, np.int64)
+    taken = np.zeros(B, bool)
+    start = int(rng.integers(0, C))
+    cur = [start]
+
+    def region(n):
+        lo = cur[0]
+        cur[0] += n
+        return (lo + np.arange(n)) % C
+
+    def lane(i, v):
+        h[i] = v
+        taken[i] = True
+
+    cases = {"victim": [], "contention": None, "window_loss": None}
+    lo, hi = (B - 1, 0) if flip else (0, B - 1)
+    for x, y in ((lo, hi), (B // 4, B // 4 + 3), (B // 2 + 3, B // 2)):
+        win = region(24)[4:4 + D]  # x's window, after room for y's earlier candidates
+        fps[win] = keys_at(win)
+        stamps = np.sort(rng.choice(seq - 1, D, replace=False)) + 1  # distinct, below seq
+        order = rng.permutation(D)
+        touch[win[order]] = stamps  # win[order[0]] oldest, win[order[1]] next
+        q, second = int(win[order[0]]), int(win[order[1]])
+        lane(x, key(win[0]))
+        lane(y, int(fps[q]))
+        cases["victim"].append((x, y, q, second))
+    base = region(24)[0]
+    j = int(rng.integers(0, 8))
+    fps[(base + np.arange(j)) % C] = keys_at((base + np.arange(j)) % C)
+    pos = (base + j) % C
+    fps[pos] = 0
+    fps[(pos + 1 + np.arange(D)) % C] = keys_at((pos + 1 + np.arange(D)) % C)
+    claimers = [B // 8, 3 * B // 8, 5 * B // 8, 7 * B // 8]
+    for i in claimers:
+        lane(i, key(base))
+    cases["contention"] = (claimers, int(pos))
+    win = region(2 * D)
+    p = int(win[D - 1])
+    fps[win] = keys_at(win)
+    fps[p] = 0
+    a, b = 1 + B // 3, 2 + 2 * B // 3
+    lane(a, key(win[0]))
+    lane(b, key(p))
+    cases["window_loss"] = (a, b, p)
+
+    # the filler, kept off the structured positions (and 20 around them)
+    used = cur[0] - start
+    rest = np.flatnonzero(~taken)
+    if C >= 512:
+        free = (start + used + 20 + np.arange(C - used - 40)) % C
+        bases = free[:-D]  # a window from any of them stays in `free`
+    else:
+        free = bases = np.arange(C)
+    kind = rng.integers(0, 6, rest.size)
+    fbase = rng.choice(bases, rest.size)
+    fill = fbase + C * rng.integers(1, _SPAN, rest.size)
+    live = fps[free[fps[free] != 0]]
+    if live.size:
+        m = kind == 0
+        fill[m] = rng.choice(live, int(m.sum()))
+    fill[kind == 2] = int(fbase[0]) + C * rng.integers(1, _SPAN, int((kind == 2).sum()))
+    fill[kind == 4] = 0
+    fill[kind == 5] = -fill[kind == 5]
+    h[rest] = fill
+    return SimpleNamespace(fps=fps, touch=touch, hashes=h, seq=seq, cases=cases)

@@ -9,12 +9,15 @@ Three functions, each with a plain version and a kernel in csrc/rows.cu:
   (:1123): algo and status are truncated through int32, field 7 is zeroed,
   and a slot outside [0, C) is dropped. The rows of one call must target
   distinct slots (the key directory emits each dirty mirror once). On the
-  card, `inject` may lie in page-locked host memory instead, in one of two
-  forms chosen by m alone (pinned_form): by value (m up to the library's
-  by_value_max), the rows copied into the launch's parameters on the host,
-  or mapped, the kernel reading them through their mapped address. InjectStaging is the engine's
-  reused page-locked buffer for that form, with the rule that keeps the
-  host from rewriting rows a launched mapped inject may still read.
+  card, `inject` may lie in page-locked host memory instead, in one of
+  three forms chosen by m alone (pinned_form): by value (m up to the
+  library's by_value_max), the rows copied into the launch's parameters on
+  the host; mapped, the kernel reading them through their mapped address;
+  or copy (m from the library's copy_min up), one copy of the rows into a
+  device scratch and the kernel there. InjectStaging is the engine's
+  reused page-locked buffer, with its device scratch, and the rule that
+  keeps the host from rewriting rows a launched mapped inject or copy may
+  still read.
 - gather_rows(state, slot, out=None) -> i64[7, m]: the first 7 fields of
   the rows at `slot` clamped to [0, C-1], as the JAX `_gather_rows` (:86)
   reads them, into `out` when given. On the card, `slot` and `out` may
@@ -71,12 +74,13 @@ BUMP_ROW = 128  # int32 lanes of a probe row: 512 bytes
 
 # Launches of the CUDA kernels: each wrapper adds one where it launches;
 # the pinned launches also add one to their form's key (<name>_by_value,
-# <name>_mapped), and pinned_counts counts them all (operands in
-# page-locked host memory).
+# <name>_mapped, inject_rows_copy), and pinned_counts counts them all
+# (operands in page-locked host memory).
 launch_counts: Dict[str, int] = {"inject_rows": 0, "gather_rows": 0,
                                  "row_bump": 0, "gather_sharded": 0,
                                  "inject_sharded": 0,
                                  "inject_rows_by_value": 0, "inject_rows_mapped": 0,
+                                 "inject_rows_copy": 0,
                                  "gather_rows_by_value": 0, "gather_rows_mapped": 0}
 pinned_counts: Dict[str, int] = {"inject_rows": 0, "gather_rows": 0}
 
@@ -89,10 +93,24 @@ def by_value_max(name: str) -> int:
     return (_kernels or _load()).by_value_max[name]
 
 
+def copy_min() -> int:
+    """The least m of rows a pinned inject copies up to the card instead of
+    reading them mapped: csrc/rows.cu's kInjectCopyMin, read from the
+    library, measured (PERF.md §6)."""
+    return (_kernels or _load()).copy_min
+
+
 def pinned_form(name: str, m: int) -> str:
     """The pinned form a launch of m slots ("gather_rows") or rows
-    ("inject_rows") takes: "by_value" or "mapped", by m alone."""
-    return "by_value" if m <= by_value_max(name) else "mapped"
+    ("inject_rows") takes, by m alone: "by_value" up to by_value_max, else
+    "mapped", except an inject of copy_min rows or more: "copy"."""
+    if m <= by_value_max(name):
+        return "by_value"
+    return "copy" if name == "inject_rows" and m >= copy_min() else "mapped"
+
+
+# the form codes of csrc/rows.cu's inject_rows_pinned_launch (kForm*)
+_INJECT_FORM = {"mapped": 0, "by_value": 1, "copy": 2}
 
 
 def reset_launch_counts() -> None:
@@ -144,10 +162,11 @@ def _load() -> SimpleNamespace:
         V, I, LL = _launch.VOID_P, _launch.INT, _launch.LONGLONG
         k = _launch.load("rows", {
             "inject_rows_launch": (I, V, LL, V, I, V),
-            "inject_rows_pinned_launch": (I, V, LL, V, I, V, V, I, I),
+            "inject_rows_pinned_launch": (I, V, LL, V, I, V, V, I, I, V),
             "gather_rows_launch": (I, V, LL, V, I, V, V),
             "gather_rows_pinned_launch": (I, V, LL, V, I, V, V, I, I),
             "rows_by_value_max": (I,),
+            "rows_inject_copy_min": (),
             "rows_pinned_floor_launch": (I, I, I, I, V),
             "row_bump_launch": (I, V, LL, V, I, V, V),
             "gather_sharded_launch": (I, V, LL, I, V, I, V, V),
@@ -158,6 +177,7 @@ def _load() -> SimpleNamespace:
         # the by-value limits, from the library whose size classes set them
         k.by_value_max = {"gather_rows": k.rows_by_value_max(0),
                           "inject_rows": k.rows_by_value_max(1)}
+        k.copy_min = k.rows_inject_copy_min()
         _kernels = k
     return _kernels
 
@@ -165,9 +185,11 @@ def _load() -> SimpleNamespace:
 def inject_rows_cuda(state: torch.Tensor, inject: torch.Tensor) -> None:
     """Inject on state's card. `inject` lies on that card, or in page-locked
     host memory (pin_memory=True): then up to by_value_max rows go by
-    value, consumed when this call returns, and more are read by the
-    kernel through their mapped address (the caller must not rewrite those
-    rows before the launch has run). Raises on anything else; an unpinned
+    value, consumed when this call returns, more are read by the kernel
+    through their mapped address, and from copy_min up they are copied into
+    a scratch allocated on the card for this call (the caller must not
+    rewrite those rows before the launch or the copy has run). Raises on
+    anything else; an unpinned
     CPU tensor is refused by the entry point, whose cudaHostGetDevicePointer
     finds no device address for it."""
     index = _launch.cuda_index(state, "inject_rows_cuda")
@@ -179,7 +201,7 @@ def inject_rows_cuda(state: torch.Tensor, inject: torch.Tensor) -> None:
     if m == 0:
         return
     if pinned:
-        _launch_pinned(index, state, inject, m, None, 0)
+        _launch_pinned(index, state, inject, m, None, 0, None)
         return
     k = _kernels or _load()
     _launch.raise_on(k.inject_rows_launch(index, state.data_ptr(), state.shape[0],
@@ -189,8 +211,8 @@ def inject_rows_cuda(state: torch.Tensor, inject: torch.Tensor) -> None:
 
 
 def inject_rows_pinned(state: torch.Tensor, rows: torch.Tensor, m: int,
-                       done: Optional[torch.cuda.Event],
-                       checked: bool = False) -> Optional[str]:
+                       done: Optional[torch.cuda.Event], checked: bool = False,
+                       scratch: Optional[torch.Tensor] = None) -> Optional[str]:
     """inject_rows_cuda of the first m rows of `rows`, an i64[R, 8] in host
     memory that its owner checked once (InjectStaging): per call only the
     table is checked and no view of `rows` is made. `checked`: the owner
@@ -199,28 +221,40 @@ def inject_rows_pinned(state: torch.Tensor, rows: torch.Tensor, m: int,
     address; else it looks the address up and refuses memory that is not
     page-locked. `done`, when not None (a torch.cuda.Event already recorded
     once, so that it exists), is recorded on the stream right after a
-    mapped launch; a by-value launch has consumed the rows when this
-    returns and records nothing. Returns the form launched ("by_value",
-    "mapped"), None for m = 0. Both this and inject_rows_cuda's page-locked
-    branch reach one entry point: that branch is the checked public form
-    for any page-locked i64[m, 8]; this one is the staging's."""
+    mapped launch, or right after the copy up of the copy form; a by-value
+    launch has consumed the rows when this returns and records nothing.
+    `scratch`: the owner's i64[R', 8] on the table's card that the copy
+    form copies the rows into (allocated for the call when None); it is
+    reused in stream order only. Returns the form launched ("by_value",
+    "mapped", "copy"), None for m = 0. Both this and inject_rows_cuda's
+    page-locked branch reach one entry point: that branch is the checked
+    public form for any page-locked i64[m, 8]; this one is the staging's."""
     index = _launch.cuda_index(state, "inject_rows_pinned")
     _launch.check(state, "table", I64, (None, ROW_FIELDS), index)
-    return _launch_pinned(index, state, rows, m, done, int(checked)) if m else None
+    return _launch_pinned(index, state, rows, m, done, int(checked), scratch) if m else None
 
 
 def _launch_pinned(index: int, state: torch.Tensor, rows: torch.Tensor, m: int,
-                   done: Optional[torch.cuda.Event], checked: int) -> str:
+                   done: Optional[torch.cuda.Event], checked: int,
+                   scratch: Optional[torch.Tensor]) -> str:
     """Launch the inject of the first m page-locked `rows` in the form m
     picks, and return the form; `checked`: the caller vouches that they are
-    page-locked."""
+    page-locked; `scratch`: the copy form's device rows, or None."""
     k = _kernels or _load()
     form = pinned_form("inject_rows", m)
-    by_value = form == "by_value"
+    scratch_ptr = None
+    if form == "copy":
+        if scratch is None:  # the caching allocator reuses it in stream order
+            scratch = state.new_empty((m, ROW_FIELDS))
+        elif scratch.shape[0] < m or scratch.get_device() != index:
+            raise ValueError(f"a copy of {m} inject rows does not fit the scratch "
+                             f"{tuple(scratch.shape)} on {scratch.device}")
+        scratch_ptr = scratch.data_ptr()
     err = k.inject_rows_pinned_launch(index, state.data_ptr(), state.shape[0],
                                       rows.data_ptr(), m, k.stream(index),
-                                      None if done is None or by_value else done.cuda_event,
-                                      by_value, checked)
+                                      None if done is None or form == "by_value"
+                                      else done.cuda_event,
+                                      _INJECT_FORM[form], checked, scratch_ptr)
     if err:  # CUDA found no device address: name the operand
         _launch.require_pinned(rows, "inject rows")
     _launch.raise_on(err, "inject_rows")
@@ -232,45 +266,58 @@ def _launch_pinned(index: int, state: torch.Tensor, rows: torch.Tensor, m: int,
 
 class InjectStaging:
     """The engine's page-locked inject rows on CUDA: one i64[R, 8] buffer,
-    reused by every inject.
+    reused by every inject, and a device scratch of the same shape.
 
     The key directory writes dirty-mirror rows straight into `free()`;
-    `launch(state, m)` scatters the first m of them into the table with no
-    copy up: up to by_value_max rows by value (copied into the launch's
-    parameters), more through the buffer's mapped address;
-    `inject(state, rows)` copies other rows in first. The reuse rule: a
-    by-value launch has consumed the rows when launch() returns, so it
-    leaves nothing pending; a mapped launch records the event `done`, and
-    `free()` waits on it before it hands the buffer out again, so the host
-    never rewrites rows that a launched mapped inject may still be reading
-    (a scan group looks up, and may inject, up to 32 windows before its one
-    wait). `inject` cuts rows longer than R into chunks of R rows, each
-    copied in and launched in turn."""
+    `launch(state, m)` scatters the first m of them into the table in the
+    form m picks (pinned_form): up to by_value_max rows by value (copied
+    into the launch's parameters), more through the buffer's mapped
+    address, and from copy_min rows up by one copy into the scratch and the
+    kernel there (on an H100 the copy beats the mapped read from
+    kInjectCopyMin rows, csrc/rows.cu; PERF.md §6); `inject(state, rows)`
+    copies other rows in first. The reuse rule: a by-value launch has
+    consumed the rows when launch() returns, so it leaves nothing pending; a
+    mapped launch records the event `done` after its kernel, a copy right
+    after its copy up, and `free()` waits on it before it hands the buffer
+    out again, so the host never rewrites rows that a launched mapped
+    inject, or a queued copy, may still be reading (a scan group looks up,
+    and may inject, up to 32 windows before its one wait). The scratch
+    needs no wait: every copy into it queues behind the kernels that read
+    it, on one stream. `inject` cuts rows longer than R into chunks of R
+    rows, each copied in and launched in turn."""
 
-    def __init__(self, rows: torch.Tensor, done: torch.cuda.Event):
+    def __init__(self, rows: torch.Tensor, done: torch.cuda.Event,
+                 scratch: Optional[torch.Tensor] = None):
         """`rows`: the page-locked i64[R, 8] buffer (allocate() makes it so;
         whether it is, is read once here, and a launch from a buffer that
         is not refuses it with a ValueError); `done`: an event that exists
-        (recorded once) on the card of the tables it injects into."""
+        (recorded once) on the card of the tables it injects into;
+        `scratch`: an i64[R, 8] on that card for the copy form (None: each
+        copy-form launch allocates its own)."""
         _launch.check(rows, "inject staging", I64, (None, ROW_FIELDS), _launch.HOST)
+        if scratch is not None:
+            _launch.check(scratch, "inject scratch", I64, (rows.shape[0], ROW_FIELDS),
+                          _launch.cuda_index(scratch, "inject scratch"))
         self.rows = rows
         self.checked = rows.is_pinned()
         self.rows_np = rows.numpy()
         self.done = done
+        self.scratch = scratch
         self._pending = False
-        self.waits = 0  # free() calls that found a launched mapped inject to wait on
+        self.waits = 0  # free() calls that found a launched mapped inject or copy to wait on
 
     @classmethod
     def allocate(cls, rows: int, device: torch.device) -> "InjectStaging":
-        """R = `rows` page-locked rows and an event on `device`, allocated
-        once; a failed allocation raises."""
+        """R = `rows` page-locked rows, their device scratch and an event on
+        `device`, allocated once; a failed allocation raises."""
         buf = torch.empty((rows, ROW_FIELDS), dtype=I64, pin_memory=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(device))  # creates the event
-        return cls(buf, done)
+        return cls(buf, done, torch.empty((rows, ROW_FIELDS), dtype=I64, device=device))
 
     def free(self) -> np.ndarray:
-        """The buffer's numpy view, once no launched mapped inject reads it."""
+        """The buffer's numpy view, once no launched mapped inject or copy
+        reads it."""
         if self._pending:
             self.waits += 1
             self.done.synchronize()
@@ -282,8 +329,8 @@ class InjectStaging:
         directory's binding wrote them into free()."""
         if m > len(self.rows_np):
             raise ValueError(f"{m} inject rows exceed the staging's {len(self.rows_np)}")
-        form = inject_rows_pinned(state, self.rows, m, self.done, self.checked)
-        self._pending = form == "mapped"
+        form = inject_rows_pinned(state, self.rows, m, self.done, self.checked, self.scratch)
+        self._pending = form in ("mapped", "copy")
 
     def inject(self, state: torch.Tensor, rows: np.ndarray) -> None:
         """Scatter `rows` (i64[m, 8]) into `state`: copied into the buffer
@@ -293,7 +340,6 @@ class InjectStaging:
             chunk = rows[start:start + R]
             self.free()[:len(chunk)] = chunk
             self.launch(state, len(chunk))
-
 
 
 class SlabStaging:
@@ -512,7 +558,8 @@ def inject_sharded_cuda(state: torch.Tensor, slot: torch.Tensor,
 def pinned_floor_cuda(index: int, name: str, m: int) -> None:
     """An empty kernel on card `index`, on the grid, and with the parameter
     block, of a pinned launch of m slots (name "gather_rows") or rows
-    ("inject_rows") in the form m picks: the floor under its device time.
+    ("inject_rows") in the form m picks (for the copy form, its kernel's
+    grid: the copy up is not counted in): the floor under its device time.
     Counted nowhere."""
     k = _kernels or _load()
     _launch.raise_on(k.rows_pinned_floor_launch(index, name == "inject_rows", m,

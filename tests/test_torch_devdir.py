@@ -9,6 +9,14 @@ models/devdir_engine.py) against the JAX package's, bit for bit.
   every candidate was stamped this batch), distinct hashes of one probe base
   (in-batch contention) and negative hashes. Slots, fresh and retry flags
   and both columns must be equal.
+- The probe's orderings: ops/devdir.py ordering_stimulus (which
+  chip_smoke.py phase 8a runs through the kernel) at B = 64 and 8192 (the
+  latter at C = 4096, every window overlapping): a lane whose oldest
+  candidate another lane matches, lane 0 against lane B - 1 both ways and
+  middle lanes above and below; four keys claiming one empty position; a
+  lane losing its claim to a higher lane whose window shares only that
+  position. Every output and both columns equal, and the structures as
+  built where C leaves room for them.
 - The reference's own tests (tests/test_devdir.py, tests/test_devdir_engine.py)
   through the port: the directory contracts, the engine-level differential
   against the host-directory Engine, and the DevDirEngine trials with the
@@ -16,7 +24,8 @@ models/devdir_engine.py) against the JAX package's, bit for bit.
   fingerprints, stamps and table after every step.
 - The carry of a JAX engine's state into the port mid-run (convert.py), the
   lone path's misses, the fingerprints, and the CUDA wrappers' argument
-  checks with a stand-in library.
+  checks with a stand-in library, with the refusals of the probe's
+  cooperative launch.
 
 Every value is an integer, so the tolerance is zero. The CUDA kernels behind
 the port's entry points are held to these plain versions on the card by
@@ -146,6 +155,54 @@ def test_probe_assign_matches_jax(C, seed):
         assert_tensor(slot, j_slot)
         assert_tensor(fresh, j_fresh)
         assert_tensor(t_fps, j_fps)
+
+
+@pytest.mark.parametrize("evict", [True, False])
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("C,B", [(16, 64), (64, 64), (4096, 64), (4096, 8192)])
+def test_probe_ordering_stimuli_match_jax(C, B, flip, evict):
+    """ops/devdir.py ordering_stimulus (the stimuli chip_smoke.py phase 8a
+    runs through the kernel) through the JAX functions and the port's plain
+    versions: every output and both columns bit-equal. At C = 4096 (every
+    window overlapping at B = 8192) the structures hold as built: a lane
+    whose oldest candidate another lane matches (lane 0 against lane B - 1
+    both ways, and middle lanes above and below) evicts its second oldest
+    instead, or retries without eviction; of four keys claiming one empty
+    position the highest lane wins; a lane loses its claim to a higher lane
+    whose window shares only the claimed position."""
+    st = dd.ordering_stimulus(C, B, 40, seed=C + B + int(flip), flip=flip)
+    h = torch.from_numpy(st.hashes)
+    t_fps = torch.from_numpy(st.fps.copy())
+    if evict:
+        j_fps, j_touch, j_slot, j_fresh, j_retry = _J["evict"](st.fps, st.touch, st.hashes,
+                                                               st.seq)
+        t_touch = torch.from_numpy(st.touch.copy())
+        slot, fresh, retry = dd.probe_assign_evict(t_fps, t_touch, h, st.seq)
+        assert_tensor(retry, j_retry)
+        assert_tensor(t_touch, j_touch)
+    else:
+        j_fps, j_slot, j_fresh = _J["plain"](st.fps, st.hashes)
+        slot, fresh = dd.probe_assign(t_fps, h)
+    assert_tensor(slot, j_slot)
+    assert_tensor(fresh, j_fresh)
+    assert_tensor(t_fps, j_fps)
+    if C < 4096:
+        return
+    slot, fresh = slot.numpy(), fresh.numpy()
+    lanes = [lane for x, y, _q, _s in st.cases["victim"] for lane in (x, y)]
+    assert {0, B - 1} <= set(lanes)
+    for x, y, q, second in st.cases["victim"]:
+        assert slot[y] == q and not fresh[y]
+        assert (slot[x], fresh[x]) == ((second, True) if evict else (-1, False))
+    claimers, pos = st.cases["contention"]
+    assert [int(slot[i]) for i in claimers] == [-1, -1, -1, pos]
+    a, b, p = st.cases["window_loss"]
+    assert a < b and (slot[a], slot[b], fresh[b]) == (-1, p, True)
+
+
+def test_ordering_stimulus_needs_its_lanes():
+    with pytest.raises(ValueError, match="at least 64 lanes"):
+        dd.ordering_stimulus(4096, 32, 40, seed=0)
 
 
 def test_probe_writes_the_staging_rows():
@@ -457,8 +514,18 @@ def _library(calls):
         calls.append(("refresh", args))
         return 0
 
+    def grid(index, B, evict, threads):
+        calls.append(("grid", (index, B, evict)))
+        threads._obj.value = 1024 if B > 64 else 256  # the entry point's out-argument
+        return 4
+
+    def floor(*args):
+        calls.append(("floor", args))
+        return 0
+
     return SimpleNamespace(devdir_probe_launch=probe, devdir_refresh_launch=refresh,
-                           stream=lambda index: 7)
+                           devdir_probe_grid=grid, devdir_probe_floor_launch=floor,
+                           devdir_error_string=lambda err: b"an error", stream=lambda index: 7)
 
 
 _B = torch.bool
@@ -527,6 +594,48 @@ def test_probe_wrapper_counts_its_launch(monkeypatch, evict):
     assert (slot is None, fresh is None) == (evict, evict)
     dd.probe_cuda(_fake_cuda(), None, _fake_cuda(shape=(16,)), 0, None, _OUT)
     assert calls[-1][1][9] == 42 and sc.tag == 42
+
+
+@pytest.mark.parametrize("err,match", [
+    (720, "the probe's grid cannot be co-resident on the card"),
+    (801, "the card takes no cooperative launch"),
+    (2, "the cooperative launch was refused"),
+])
+def test_probe_wrapper_raises_a_refused_launch(monkeypatch, err, match):
+    """A cooperative launch the entry point refuses (before the launch: no
+    cooperative launch on the card, a grid that cannot be co-resident; or
+    the launch's own error) raises, naming the refusal and the CUDA error;
+    nothing is counted and nothing falls back."""
+    calls = []
+    lib = _library(calls)
+    lib.devdir_probe_launch = lambda *args: err
+    monkeypatch.setattr(dd, "_kernels", lib)
+    monkeypatch.setitem(dd._scratch, 0, SimpleNamespace(
+        claims=_fake_cuda(shape=(64,)), tag=3, lanes=_fake_cuda(shape=(48,))))
+    dd.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=f"devdir_probe: {match} \\(CUDA error {err}: an error"):
+        dd.probe_cuda(_fake_cuda(), None, _fake_cuda(shape=(16,)), 0, None, _OUT)
+    assert not any(dd.launch_counts.values())
+
+
+def test_probe_grid_and_floor(monkeypatch):
+    """probe_grid returns the entry point's block count with the block size
+    it reports and raises on its negative error; probe_floor_cuda hands the card, B, the eviction flag,
+    the barrier flag and the stream to the floor's entry point and counts
+    nothing."""
+    calls = []
+    lib = _library(calls)
+    monkeypatch.setattr(dd, "_kernels", lib)
+    dd.reset_launch_counts()
+    assert dd.probe_grid(0, 8192, True) == (4, 1024)
+    assert calls[-1] == ("grid", (0, 8192, 1))
+    assert dd.probe_grid(0, 16, False) == (4, 256)
+    dd.probe_floor_cuda(0, 64, False, barriers=True)
+    assert calls[-1] == ("floor", (0, 64, 0, 1, 7))
+    lib.devdir_probe_grid = lambda *args: -720
+    with pytest.raises(RuntimeError, match="cannot be co-resident"):
+        dd.probe_grid(0, 64, False)
+    assert not any(dd.launch_counts.values())
 
 
 def test_refresh_wrapper_checks_and_counts(monkeypatch):

@@ -381,7 +381,7 @@ def test_scan_group_injects_match_jax(monkeypatch, staging):
     if staging == "reused":
         done = _StagingEvent()
 
-        def launch(state, buf, m, ev, checked):
+        def launch(state, buf, m, ev, checked, scratch):
             assert ev.launched is None, "the staging was handed out before the wait"
             view = buf.numpy()[:m]
             ev.launched = (view, view.copy())

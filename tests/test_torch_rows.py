@@ -11,11 +11,13 @@ package, bit for bit, and their CUDA wrappers' contracts.
 - the shared launch path's checks (ops/_launch.py), which run before any
   library is loaded: they refuse CPU tables and a wrong card, dtype, shape
   or contiguity; its page-lock predicate refuses ordinary CPU tensors.
-- the pinned forms: the form each m takes at the by-value class edges,
-  the form and the address-lookup flag each wrapper hands its entry point
+- the pinned forms: the form each m takes at the by-value class edges
+  and, for the inject, at the copy threshold, the form, the address-lookup
+  flag, the event and the copy's scratch each wrapper hands its entry point
   (a recording stand-in for the library), the staging's reuse rule by
-  form (a by-value launch leaves nothing pending, a mapped one is waited
-  on), and the plain inject and gather, the oracles of both forms,
+  form (a by-value launch leaves nothing pending, a mapped one or a copy
+  is waited on), the chunks and forms of a staging's inject of 8192 and
+  8193 rows, and the plain inject and gather, the oracles of every form,
   against the JAX functions at those edges with slots -1, C - 1 and C.
 - row_bump against a numpy statement of the row-access probe of
   scripts/bench_pallas_rows.py (`t[s] += 1` on distinct rows, out =
@@ -222,17 +224,17 @@ def test_row_bump_into_out_matches_the_probe(N, B):
         assert out.tolist() == [int(s[0])]
 
 
-def _cu_limits():
-    """The by-value limits as csrc/rows.cu defines them (its largest size
-    classes), which the loaded library reports as `by_value_max`."""
+def _cu_constant(const):
+    """An integer constant of csrc/rows.cu, as the loaded library reports it."""
     with open(os.path.join(os.path.dirname(rows.__file__), "..", "csrc", "rows.cu")) as f:
-        src = f.read()
-    return {name: int(re.search(rf"\b{const} = (\d+)", src).group(1))
-            for name, const in (("gather_rows", "kGatherValueMax"),
-                                ("inject_rows", "kInjectValueMax"))}
+        return int(re.search(rf"\b{const} = (\d+)", f.read()).group(1))
 
 
-LIMITS = _cu_limits()
+# the by-value limits (the largest size classes, the library's
+# `by_value_max`) and the least m the inject copies up (its `copy_min`)
+LIMITS = {"gather_rows": _cu_constant("kGatherValueMax"),
+          "inject_rows": _cu_constant("kInjectValueMax")}
+COPY_MIN = _cu_constant("kInjectCopyMin")
 
 
 def _no_kernels(err):
@@ -242,7 +244,7 @@ def _no_kernels(err):
     fail = lambda *a: err  # noqa: E731
     return SimpleNamespace(inject_rows_launch=fail, inject_rows_pinned_launch=fail,
                            row_bump_launch=fail, stream=lambda index: 0,
-                           by_value_max=LIMITS)
+                           by_value_max=LIMITS, copy_min=COPY_MIN)
 
 
 @pytest.mark.parametrize("call,match", [
@@ -273,6 +275,22 @@ def _no_kernels(err):
     (lambda: rows.InjectStaging(torch.zeros((LIMITS["inject_rows"] + 1, 8), dtype=torch.int64),
                                 None).launch(_fake_cuda(), LIMITS["inject_rows"] + 1),
      "inject rows must be page-locked"),
+    (lambda: rows.InjectStaging(torch.zeros((COPY_MIN, 8), dtype=torch.int64), None,
+                                _fake_cuda(shape=(COPY_MIN, 8))).launch(_fake_cuda(), COPY_MIN),
+     "inject rows must be page-locked"),
+    (lambda: rows.InjectStaging(torch.zeros((COPY_MIN, 8), dtype=torch.int64), None,
+                                _fake_cuda(shape=(COPY_MIN - 1, 8))),
+     rf"inject scratch must be \[{COPY_MIN}, 8\]"),
+    (lambda: rows.InjectStaging(torch.zeros((COPY_MIN, 8), dtype=torch.int64), None,
+                                torch.zeros((COPY_MIN, 8), dtype=torch.int64)),
+     "inject scratch needs CUDA tensors"),
+    (lambda: rows.inject_rows_pinned(_fake_cuda(), torch.zeros((COPY_MIN, 8), dtype=torch.int64),
+                                     COPY_MIN, None, True, _fake_cuda(shape=(COPY_MIN - 1, 8))),
+     f"a copy of {COPY_MIN} inject rows does not fit the scratch"),
+    (lambda: rows.inject_rows_pinned(_fake_cuda(), torch.zeros((COPY_MIN, 8), dtype=torch.int64),
+                                     COPY_MIN, None, True, _fake_cuda(index=1,
+                                                                     shape=(COPY_MIN, 8))),
+     f"a copy of {COPY_MIN} inject rows does not fit the scratch"),
     (lambda: rows.row_bump_cuda(_fake_cuda(dtype=torch.int32, shape=(64, 128)),
                                 _fake_cuda(dtype=torch.int32, shape=(4,)),
                                 torch.zeros(1, dtype=torch.int32)),
@@ -295,8 +313,9 @@ def test_cuda_row_wrappers_refuse(monkeypatch, call, match):
     page-locked (the entry point's address lookup fails, and the wrapper
     names the operand), as inject_rows_pinned does, which also checks the
     table; InjectStaging refuses a buffer of a wrong dtype or width, a
-    launch of more rows than it holds, and a launch in either form from a
-    buffer that is not page-locked;
+    scratch of another shape or off the card, a launch of more rows than it
+    holds, and a launch in every form from a buffer that is not page-locked;
+    the copy form refuses a scratch too small or on another card;
     row_bump_cuda refuses an out on the CPU or of a wrong dtype or shape,
     and strided slots. Nothing is counted."""
     monkeypatch.setattr(rows, "_kernels", _no_kernels(1))
@@ -334,8 +353,9 @@ def _cpu_staging(monkeypatch, R):
     st = rows.InjectStaging(torch.zeros((R, 8), dtype=torch.int64), done)
     launches = []
 
-    def launch(state, buf, m, ev, checked):
+    def launch(state, buf, m, ev, checked, scratch):
         assert ev is done and done.launched is None, "rows handed out before the wait"
+        assert scratch is None  # a staging made without one
         assert checked is False  # an ordinary CPU buffer: the entry looks it up
         view = buf.numpy()[:m]
         done.launched = (view, view.copy())
@@ -396,19 +416,25 @@ def test_ab_rows_refuses_without_a_card(capsys):
 @pytest.mark.parametrize("name,m,form", [
     ("gather_rows", 1, "by_value"), ("gather_rows", 16, "by_value"),
     ("gather_rows", 64, "by_value"), ("gather_rows", 65, "mapped"),
-    ("gather_rows", 4096, "mapped"),
+    ("gather_rows", 4096, "mapped"), ("gather_rows", 8192, "mapped"),
     ("inject_rows", 1, "by_value"), ("inject_rows", 16, "by_value"),
     ("inject_rows", 17, "by_value"), ("inject_rows", 64, "by_value"),
     ("inject_rows", 65, "by_value"), ("inject_rows", 448, "by_value"),
-    ("inject_rows", 449, "mapped"), ("inject_rows", 4096, "mapped"),
+    ("inject_rows", 449, "mapped"), ("inject_rows", COPY_MIN - 1, "mapped"),
+    ("inject_rows", COPY_MIN, "copy"), ("inject_rows", 4096, "copy"),
+    ("inject_rows", 8192, "copy"),
 ])
 def test_pinned_form_at_class_edges(monkeypatch, name, m, form):
     """A pinned launch goes by value up to the largest size class of
     csrc/rows.cu (64 slots, 448 rows), which the library reports, and
-    mapped above, by m alone."""
+    mapped above; an inject of the library's copy_min rows or more (a
+    restore's 8192-row chunk among them) is copied up. By m alone."""
     assert LIMITS == {"gather_rows": 64, "inject_rows": 448}
-    monkeypatch.setattr(rows, "_kernels", SimpleNamespace(by_value_max=LIMITS))
+    assert 448 < COPY_MIN <= 8192
+    monkeypatch.setattr(rows, "_kernels", SimpleNamespace(by_value_max=LIMITS,
+                                                          copy_min=COPY_MIN))
     assert rows.by_value_max(name) == LIMITS[name]
+    assert rows.copy_min() == COPY_MIN
     assert rows.pinned_form(name, m) == form
 
 
@@ -425,7 +451,8 @@ def _recording_kernels():
 
     return calls, SimpleNamespace(gather_rows_pinned_launch=record("gather"),
                                   inject_rows_pinned_launch=record("inject"),
-                                  stream=lambda index: 77, by_value_max=LIMITS)
+                                  stream=lambda index: 77, by_value_max=LIMITS,
+                                  copy_min=COPY_MIN)
 
 
 @pytest.mark.parametrize("m", [1, 16, 64, 65, 300])
@@ -457,37 +484,89 @@ def test_pinned_gather_passes_its_form(monkeypatch, m):
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("m", [1, 16, 17, 448, 449])
+def _card_state(shape=(100, 8)):
+    """A fake table on card 0 whose new_empty (the public copy form's
+    scratch) records the shape it was asked for."""
+    made = []
+    state = _fake_cuda(shape=shape)
+
+    def new_empty(shape):
+        made.append(shape)
+        return SimpleNamespace(shape=shape, get_device=lambda: 0, data_ptr=lambda: 8192)
+
+    state.new_empty = new_empty
+    return state, made
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 448, 449, COPY_MIN - 1, COPY_MIN, 8192])
 def test_pinned_inject_passes_its_form(monkeypatch, m):
     """inject_rows_pinned (the staging's entry) records the staging's event
-    only after a mapped launch, hands on the staging's page-lock flag
-    (checked = 1 for a page-locked staging, 0 else) and returns the form it
-    launched; inject_rows_cuda on page-locked rows (the public entry:
-    checked = 0) records none. Each launch is counted under its form."""
+    only after a mapped launch or a copy, hands on the staging's page-lock
+    flag (checked = 1 for a page-locked staging, 0 else), the form's code
+    (mapped 0, by value 1, copy 2) and, for the copy form, the scratch, and
+    returns the form it launched; inject_rows_cuda on page-locked rows (the
+    public entry: checked = 0) records none, and its copy form copies into
+    a scratch of m rows allocated on the table's card. Each launch is
+    counted under its form."""
     calls, fake = _recording_kernels()
     monkeypatch.setattr(rows, "_kernels", fake)
     rows.reset_launch_counts()
-    state = _fake_cuda(shape=(100, 8))
+    state, made = _card_state()
     buf = torch.zeros((m, 8), dtype=torch.int64)
-    by_value = m <= 448
-    form = "by_value" if by_value else "mapped"
-    assert rows.inject_rows_pinned(state, buf, m, SimpleNamespace(cuda_event=55), True) == form
+    form = "by_value" if m <= 448 else "copy" if m >= COPY_MIN else "mapped"
+    code = {"mapped": 0, "by_value": 1, "copy": 2}[form]
+    scratch = _fake_cuda(shape=(8192, 8))
+    copy_ptr = 4096 if form == "copy" else None
+    assert rows.inject_rows_pinned(state, buf, m, SimpleNamespace(cuda_event=55), True,
+                                   scratch) == form
     rows.inject_rows_cuda(state, buf)
-    assert rows.inject_rows_pinned(state, buf, m, None, False) == form
-    assert rows.inject_rows_pinned(state, buf, 0, None, True) is None
-    want_done = None if by_value else 55
+    assert made == ([(m, 8)] if form == "copy" else [])
+    assert rows.inject_rows_pinned(state, buf, m, None, False, scratch) == form
+    assert rows.inject_rows_pinned(state, buf, 0, None, True, scratch) is None
+    want_done = None if form == "by_value" else 55
     assert [c for _, c in calls] == [
-        (0, 4096, 100, buf.data_ptr(), m, 77, want_done, by_value, 1),
-        (0, 4096, 100, buf.data_ptr(), m, 77, None, by_value, 0),
-        (0, 4096, 100, buf.data_ptr(), m, 77, None, by_value, 0)]
+        (0, 4096, 100, buf.data_ptr(), m, 77, want_done, code, 1, copy_ptr),
+        (0, 4096, 100, buf.data_ptr(), m, 77, None, code, 0, 8192 if copy_ptr else None),
+        (0, 4096, 100, buf.data_ptr(), m, 77, None, code, 0, copy_ptr)]
     calls.clear()
     assert rows.launch_counts["inject_rows"] == rows.pinned_counts["inject_rows"] == 3
     assert rows.launch_counts[f"inject_rows_{form}"] == 3
-    st = rows.InjectStaging(buf, None)  # an ordinary CPU buffer: looked up at each launch
+    assert sum(rows.launch_counts[f"inject_rows_{f}"]
+               for f in ("by_value", "mapped", "copy")) == 3
+    st = rows.InjectStaging(buf, None, _fake_cuda(shape=(m, 8)))  # looked up at each launch
     assert st.checked is False
     st.launch(state, m)
-    assert [c for _, c in calls] == [(0, 4096, 100, buf.data_ptr(), m, 77, None, by_value, 0)]
-    assert st._pending is not by_value
+    assert [c for _, c in calls] == [(0, 4096, 100, buf.data_ptr(), m, 77, None, code, 0,
+                                      copy_ptr)]
+    assert st._pending is (form != "by_value")
+
+
+@pytest.mark.parametrize("m,chunks", [(8192, [(8192, "copy")]),
+                                      (8193, [(8192, "copy"), (1, "by_value")])])
+def test_inject_staging_chunks_by_form(monkeypatch, m, chunks):
+    """A staging of R = 8192 rows (the engine's max_width) cuts an inject of
+    8193 rows into a chunk of 8192, copied up through its scratch, and one
+    of 1, by value; 8192 rows are one copy. Each chunk that is copied up
+    leaves the staging pending, so the next free() waits on its event
+    before the host rewrites the rows."""
+    calls, fake = _recording_kernels()
+    monkeypatch.setattr(rows, "_kernels", fake)
+    rows.reset_launch_counts()
+    R = 8192
+    buf = torch.zeros((R, 8), dtype=torch.int64)
+    waited = []
+    done = SimpleNamespace(cuda_event=9, synchronize=lambda: waited.append(len(calls)))
+    st = rows.InjectStaging(buf, done, _fake_cuda(shape=(R, 8)))
+    state, _made = _card_state()
+    st.inject(state, np.zeros((m, 8), np.int64))
+    code = {"mapped": 0, "by_value": 1, "copy": 2}
+    assert [(c[4], c[7]) for _, c in calls] == [(n, code[f]) for n, f in chunks]
+    assert [c[6] for _, c in calls] == [None if f == "by_value" else 9 for _, f in chunks]
+    assert [c[9] for _, c in calls] == [4096 if f == "copy" else None for _, f in chunks]
+    assert waited == [1] * (len(chunks) - 1)  # the second chunk waited for the copy
+    assert st._pending is (chunks[-1][1] != "by_value")
+    assert {f: rows.launch_counts[f"inject_rows_{f}"] for _, f in chunks} == {
+        f: sum(1 for _, g in chunks if g == f) for _, f in chunks}
 
 
 class _CardEvent:
@@ -517,7 +596,7 @@ def test_inject_staging_reuse_rule_by_form(monkeypatch):
     R, C = 512, 4096
     done = _CardEvent()
 
-    def launch(state, buf, m, ev, checked):
+    def launch(state, buf, m, ev, checked, scratch):
         if m > LIMITS["inject_rows"]:
             ev.deferred.append((state, buf.numpy()[:m]))
             return "mapped"

@@ -408,7 +408,7 @@ def test_card_path_staging_matches_jax(monkeypatch, small_slabs):
 
     launches = []
 
-    def launch(state, buf, m, ev, checked):
+    def launch(state, buf, m, ev, checked, scratch):
         assert ev.launched is None, "the staging was handed out before the wait"
         view = buf.numpy()[:m]
         ev.launched = (view, view.copy())
