@@ -74,8 +74,21 @@ file's package, so every tree is read on one yardstick:
   alone at m = 64, 1024 and WINDOW random slots, host microseconds per
   call, the median of 7 runs of 50 calls (rows_for_keys: 20) each.
 
+- mesh: chip_smoke's 15a all-reduce on one card (n = 2, 4 and 8 entries
+  that all name cuda:0, L = 1024 and 4096, values over the whole int64
+  range) through the tree's ring_all_reduce_mesh_cuda, held bit-equal to
+  its plain version, with its launches a call, then timed by
+  chip_smoke.mesh_ring_times (device ms a launch of the kernels whose name
+  holds "ring_", the tree's hops or its one launch, and a call, that times
+  the launches; an all-reduce's span, CUDA events, also with every call
+  queued behind a busy stream; a call and the plain version's, host
+  clock); then chip_smoke's 15c on a mesh engine of the tree (eight
+  entries of 1,250,000 rows on cuda:0, collectives="ring"): five ring
+  steps against the psum twin, equal after each, the first and the steady
+  step's ms of both.
+
 --parts picks some of these (decide, rows, engine, cold_rows, store,
-probe; all by default). Prints the card's line (nvidia-smi name, power limit), then one
+probe, mesh; all by default). Prints the card's line (nvidia-smi name, power limit), then one
 JSON line per tree. Needs one card.
 """
 
@@ -560,7 +573,48 @@ def _probe(cs, dev):
     return recs
 
 
-PARTS = ("decide", "rows", "engine", "cold_rows", "store", "probe")
+def _mesh(cs, dev):
+    """The tree's cross-card all-reduce on one card (15a's shapes) and 15c's
+    steps on a mesh engine of the tree."""
+    from gubernator_tpu_torch.ops import ring as rk
+    from gubernator_tpu_torch.parallel import make_mesh
+    from gubernator_tpu_torch.parallel.sharded import ShardedEngine
+
+    rng = np.random.default_rng(40)
+    lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    recs = []
+    for n in cs.MESH_N:
+        streams = rk.entry_streams([dev.index] * n)
+        for L in cs.MESH_L:
+            xs = [torch.from_numpy(rng.integers(lo, hi, L, dtype=np.int64, endpoint=True)).to(dev)
+                  for _ in range(n)]
+            torch.cuda.synchronize()
+            before = rk.launch_counts["ring_all_reduce_mesh"]
+            got = rk.ring_all_reduce_mesh_cuda(xs)
+            launches = rk.launch_counts["ring_all_reduce_mesh"] - before
+            torch.cuda.synchronize()
+            want = rk.ring_all_reduce_mesh_plain(xs)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"ab_rows: the mesh all-reduce at n={n} L={L} differs from "
+                                 "its plain version")
+            recs.append(dict(n=n, L=L, launches=launches,
+                             **cs.mesh_ring_times(xs, streams, "ring_", launches)))
+            del xs, got, want
+    mesh = make_mesh(n_shards=cs.SHARDS, devices=[dev] * cs.SHARDS)
+    me = ShardedEngine(mesh=mesh, collectives="ring", capacity_per_shard=cs.SHARD_ROWS,
+                       min_width=64, max_width=cs.WINDOW)
+    me.warmup()
+    glob = {}
+    cs.mesh_global(0, me, glob, "", count_check=False)
+    g = glob["mesh_global"]
+    del me
+    torch.cuda.empty_cache()
+    return dict(ring=recs, step={k: g[k] for k in (
+        "step_ms", "steady_step_ms", "first_step_ms", "psum_steady_step_ms",
+        "psum_first_step_ms", "launches")})
+
+
+PARTS = ("decide", "rows", "engine", "cold_rows", "store", "probe", "mesh")
 
 
 def child(tree: str, windows: int, parts=PARTS) -> int:
@@ -593,6 +647,8 @@ def child(tree: str, windows: int, parts=PARTS) -> int:
         rec["store"] = _store(cs, dev)
     if "probe" in parts:
         rec["probe"] = _probe(cs, dev)
+    if "mesh" in parts:
+        rec["mesh"] = _mesh(cs, dev)
     print(json.dumps(rec), flush=True)
     return 0
 

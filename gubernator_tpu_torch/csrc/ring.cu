@@ -28,13 +28,12 @@
 //
 // The cross-card form (ring_mesh_launch, below) is the same Pallas kernel as
 // it runs on each device of a mesh axis: one int64[L] value an entry, each on
-// its entry's card, n - 1 hops around the ring.
+// its entry's card, every entry ending with the sum of all.
 
-#include <array>
+#include <algorithm>
 #include <cstdint>
 #include <map>
 #include <mutex>
-#include <utility>
 #include <cuda_runtime.h>
 
 namespace {
@@ -112,65 +111,170 @@ extern "C" int ring_all_reduce_launch(int device, const void* x, void* out, int 
 // ------------------------------------------------------- the cross-card ring
 //
 // Replaces the same Pallas kernel, `_ring_kernel` (gubernator_tpu/ops/ring.py
-// :39), as it runs once on EACH device of the ring axis (the sharded GLOBAL
-// sync's collectives="ring", parallel/global_sync.py:94-100 and :139-148 of
-// the JAX package). Entry d of an n-entry mesh holds x[d] (int64[L]) on its
-// own card and its own stream; every entry ends with the sum of all x.
+// :39, pallas_call :104), as it runs once on EACH device of the ring axis
+// (the sharded GLOBAL sync's collectives="ring", parallel/global_sync.py
+// :94-100 and :139-148 of the JAX package). Entry d of an n-entry mesh holds
+// x[d] (int64[L]) on its own card and its own stream; every entry ends with
+// the (wrapping) sum of all x. The plain PyTorch version is
+// ring_all_reduce_mesh_plain() in ops/ring.py.
 //
-// Design: hop h (0 .. n-2) on entry d is ONE launch of ring_hop_kernel on d's
-// stream. The entry PULLS: each thread reads column l of what its left-hand
-// neighbour d-1 forwarded on hop h-1 (x[d-1] itself on hop 0) through a
-// device pointer, writes it into its own two-slot buffer comm[d][(h+1) % 2]
-// for d+1 to read on the next hop, and adds it into acc[d] (as uint64_t, so
-// the sum wraps as the single-card kernel's does). On distinct cards the
-// pointer is a peer pointer (peer access enabled by the wrapper, NVLink); on
-// a card that a mesh repeats it is a local one. Pulling keeps every write on
-// the writer's own card, so a hop's stores never cross the link; only its
-// one load of L values does. The Pallas kernel pushes (a remote copy into
-// the next device's buffer); either direction moves the same L values a hop.
+// The Pallas kernel builds the sum in n - 1 rotate-and-accumulate hops, the
+// schedule that suits ICI, where a chip talks to its neighbours. Two facts of
+// an H100 host change that: entries that share a card are summed by one
+// thread a column in one pass, and cards joined by NVLink are all to all, so
+// a card reads every other card's value in one round of loads. Adds mod 2^64
+// do not depend on order, so the one-pass sum is bit-equal to the ring's.
 //
-// Two events an entry, by hop parity, take the place of the Pallas kernel's
-// two DMA semaphores. Hop h on d waits (cudaStreamWaitEvent) for
-// - receive: hop h-1 on d-1, whose slot it reads;
-// - send: hop h-1 on d+1, which read the slot of d that hop h now overwrites.
-// Hop h on d then records its own event of parity h % 2. An event recorded
-// before the hops (parity 1, "hop -1") says that x[d] is ready on d's stream.
-// After the last hop, d's stream waits for d+1's last hop, which read d's
-// buffer (or x[d]): the wrapper's scratch, allocated on d's stream, is then
-// reused there only after every reader is done. No kernel waits on a flag
-// another kernel sets, so nothing depends on two kernels being resident at
-// once, and the events order streams on one card as they order streams on
-// two.
+// Design: ONE launch of ring_mesh_kernel a card. The wrapper groups the
+// entries by card (cards in order of first appearance, c of them); card k's
+// launch goes on the stream of its first entry. Before the launch that
+// stream waits on an event recorded on each of the card's other entry
+// streams (their inputs are ready); after it, each of those streams waits on
+// one event recorded behind the launch (their sums are ready). A thread owns
+// two columns (16-byte loads; one column when L is odd or a pointer is not
+// 16-byte aligned), loads them from every entry in entry order (local
+// pointers for the card's own entries, peer pointers for the other cards':
+// one address space), adds them as uint64_t and stores the sum into the out
+// of each of the card's own entries. Every store stays on the writer's card;
+// only loads cross NVLink, one round of them. The n inputs and the card's
+// outputs go in a __grid_constant__ parameter block.
 //
-// What bounds it on an H100: launches. Each hop moves 32 L bytes on its card
-// (the neighbour's value read, the forwarded copy written, the sum read and
-// written), L = 1024 or 4096 on the sync; the n (n - 1) launches an
-// all-reduce (56 at n = 8) and their event waits cost more than the bytes.
-// A one-launch design that spins on flags in peer memory would remove the
-// launches, and is not here.
+// Across cards (c >= 2), flags in peer memory take the place of events, as in
+// NCCL's single-launch collectives. Each card of a card set has one flag
+// buffer in its own memory, u64[2][kMeshMaxBlocks] (ready, done), zeroed once
+// when the wrapper makes it; each call takes a fresh epoch (the card set's
+// counter, incremented under g_mesh_mu with the launches). Block j of card k
+//   1. publishes ready[k][j] = epoch (st.release.sys);
+//   2. spins (ld.acquire.sys) until ready[k'][j] >= epoch on every other
+//      card k': their inputs are ready;
+//   3. reads its columns and writes its sums, with coherent loads
+//      (ld.global.cg), never the non-coherent path, which could serve a line
+//      of a buffer the caller has rewritten since an earlier epoch;
+//   4. publishes done[k][j] = epoch and waits for done[k'][j] >= epoch before
+//      it exits: no card's stream may reuse or free its inputs while a peer
+//      still reads them (the caching allocator reuses freed memory on the
+//      same stream, and the GLOBAL step frees its deltas right after).
+// Epochs only grow, so the flags are never reset. A spin that waits longer
+// than kSpinTimeoutNs traps: a peer that never arrives is a fault, and a
+// trapped kernel ends with an error where a spin would hold the card.
+//
+// Progress needs no co-residency: block j waits only on block j of OTHER
+// cards, never on a block of its own grid, and every card runs the same grid
+// (at most kMeshMaxBlocks blocks, each striding over the columns past them).
+// Across cards it needs one thing: each card's stream reaches its launch.
+// That holds as long as no entry stream waits on work that another entry
+// queues after its ring launch. No caller does: the mesh engine and its
+// GLOBAL step queue each entry's work on the entry's own stream. The wrapper
+// refuses an all-reduce on other streams than the card set's own, so a card
+// set's launches on a card, and the epochs they carry, keep stream order.
+//
+// What bounds it on an H100: on one card, memory, 16nL bytes in HBM (each
+// input read once, each sum written once); on distinct cards, (c - 1) 8L
+// bytes over NVLink a card and one NVLink round trip of latency for the
+// flags. At the sync's L = 1024 and 4096 all of these are well under a
+// microsecond, so the launch and its host work bound a call. The design
+// issues c launches where the hop form issued n (n - 1) (56 at n = 8), with
+// n - c event records and 2 (n - c) waits beside them. A CUDA graph of the
+// hops was not the route: it still runs n (n - 1) kernel nodes, and its fixed
+// pointers do not fit a wrapper that allocates each call's outputs.
 
 namespace {
 
-__global__ void ring_hop_kernel(const int64_t* __restrict__ src, const int64_t* __restrict__ own,
-                                int64_t* __restrict__ fwd, int64_t* acc, int L) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const uint64_t v = static_cast<uint64_t>(src[l]);
-  if (fwd != nullptr) fwd[l] = static_cast<int64_t>(v);
-  const uint64_t a = static_cast<uint64_t>(own != nullptr ? own[l] : acc[l]);
-  acc[l] = static_cast<int64_t>(a + v);
+constexpr int kMeshThreads = 64;      // blocks as small as the single-card kernel's
+constexpr int kMeshMaxBlocks = 256;   // the grid's cap, and a flag buffer's words a kind
+constexpr int kMeshMaxEntries = 64;   // the parameter block's entries
+constexpr unsigned long long kSpinTimeoutNs = 10ull * 1000 * 1000 * 1000;
+
+struct MeshArgs {
+  const int64_t* x[kMeshMaxEntries];           // every entry's input, entry order
+  int64_t* out[kMeshMaxEntries];               // this card's entries' sums
+  unsigned long long* flags[kMeshMaxEntries];  // every card's flag buffer, card order
+  unsigned long long epoch;
+  int n, n_out, c, me, L;
+};
+
+__device__ __forceinline__ void publish(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// The events of entry position d on card `device`: [parity 0, parity 1],
-// created there at first use (an event is recorded on its own card's
-// streams only) and reused by every later all-reduce. One mutex serialises
-// whole all-reduces, so no two interleave their records.
+__device__ __forceinline__ unsigned long long observe(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Block j's handshake on flag word `word` (ready: j; done: kMeshMaxBlocks +
+// j): publish this card's word at the call's epoch, then wait until every
+// other card's word has reached it. One thread spins; the barrier passes its
+// acquire on to the block.
+__device__ void handshake(const MeshArgs& a, int word) {
+  if (threadIdx.x == 0) {
+    publish(a.flags[a.me] + word, a.epoch);
+    for (int k = 0; k < a.c; ++k) {
+      if (k == a.me) continue;
+      const unsigned long long* f = a.flags[k] + word;
+      if (observe(f) >= a.epoch) continue;
+      const unsigned long long t0 = now_ns();
+      while (observe(f) < a.epoch) {
+        if (now_ns() - t0 > kSpinTimeoutNs) __trap();
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <bool kPairs>
+__global__ void __launch_bounds__(kMeshThreads)
+    ring_mesh_kernel(const __grid_constant__ MeshArgs a) {
+  const int j = blockIdx.x;
+  if (a.c > 1) handshake(a, j);
+  const int stride = gridDim.x * kMeshThreads;
+  if (kPairs) {
+    const int units = a.L / 2;
+    for (int u = j * kMeshThreads + threadIdx.x; u < units; u += stride) {
+      uint64_t s0 = 0, s1 = 0;
+#pragma unroll 8
+      for (int e = 0; e < a.n; ++e) {
+        const longlong2 v = __ldcg(reinterpret_cast<const longlong2*>(a.x[e]) + u);
+        s0 += static_cast<uint64_t>(v.x);
+        s1 += static_cast<uint64_t>(v.y);
+      }
+      const longlong2 r = make_longlong2(static_cast<long long>(s0), static_cast<long long>(s1));
+      for (int o = 0; o < a.n_out; ++o) reinterpret_cast<longlong2*>(a.out[o])[u] = r;
+    }
+  } else {
+    for (int l = j * kMeshThreads + threadIdx.x; l < a.L; l += stride) {
+      uint64_t s = 0;
+#pragma unroll 8
+      for (int e = 0; e < a.n; ++e) {
+        s += static_cast<uint64_t>(__ldcg(reinterpret_cast<const long long*>(a.x[e]) + l));
+      }
+      for (int o = 0; o < a.n_out; ++o) a.out[o][l] = static_cast<int64_t>(s);
+    }
+  }
+  if (a.c > 1) {
+    __syncthreads();  // every load of this block is done before `done`
+    handshake(a, kMeshMaxBlocks + j);
+  }
+}
+
+// One mutex serialises whole all-reduces: an epoch and the launches that
+// carry it are queued together, and no two calls interleave their event
+// records.
 std::mutex g_mesh_mu;
-std::map<std::pair<int, int>, std::array<cudaEvent_t, 2>> g_events;
+// One event a stream, created on the stream's card at first use (an event is
+// recorded on its own card's streams only) and reused by every later call.
+std::map<cudaStream_t, cudaEvent_t> g_events;
 
 // The caller's current card, made current again when the entry point
-// returns: the loops below visit every entry's card, and the caller (and
-// PyTorch, which reads the current card) must not find itself on the last.
+// returns: the loop below visits every card, and the caller (and PyTorch,
+// which reads the current card) must not find itself on the last.
 struct KeepDevice {
   int device = -1;
   KeepDevice() { cudaGetDevice(&device); }
@@ -179,19 +283,19 @@ struct KeepDevice {
   }
 };
 
-cudaError_t entry_events(int d, int device, std::array<cudaEvent_t, 2>** out) {
-  auto it = g_events.find({d, device});
+cudaError_t stream_event(cudaStream_t st, cudaEvent_t* ev) {
+  auto it = g_events.find(st);
   if (it == g_events.end()) {
-    std::array<cudaEvent_t, 2> ev{};
-    for (auto& e : ev) {
-      const cudaError_t err = cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
-      if (err != cudaSuccess) return err;
-    }
-    it = g_events.emplace(std::make_pair(d, device), ev).first;
+    cudaEvent_t e;
+    const cudaError_t err = cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+    it = g_events.emplace(st, e).first;
   }
-  *out = &it->second;
+  *ev = it->second;
   return cudaSuccess;
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -214,61 +318,87 @@ extern "C" int ring_enable_peer(int device, int peer) {
   return static_cast<int>(err);
 }
 
-// All-reduce-sum of x[d] (int64[L] on card devices[d]) over n >= 2 entries
-// into out[d] (int64[L] on the same card), each entry's work on streams[d]:
-// n (n - 1) launches of ring_hop_kernel, ordered by events as the header
-// says. comm[d] is int64[2, L] on card devices[d] (unused, and may be null,
-// when n == 2). x[d] must be ready on streams[d]; out[d] is ready there when
-// the call's work on it is done. Returns the first CUDA error of a record,
-// a wait or a launch (0 when every one was accepted).
-extern "C" int ring_mesh_launch(int n, const int* devices, const void* const* x,
-                                void* const* comm, void* const* out, int L,
-                                void* const* streams) {
-  if (n < 2 || L < 0) return static_cast<int>(cudaErrorInvalidValue);
+// The most entries an all-reduce takes, and the u64 words of a card's flag
+// buffer; ops/ring.py reads both once, at load.
+extern "C" int ring_mesh_max_entries() { return kMeshMaxEntries; }
+extern "C" int ring_mesh_flag_words() { return 2 * kMeshMaxBlocks; }
+
+// All-reduce-sum of x[e] (int64[L] on its card) over 2 <= n <= 64 entries
+// into out[e] (int64[L] on the same card), entry e's work on streams[e]. The
+// entries lie on c cards, devices[k] for k = card_of[e], numbered in order of
+// first appearance; flags[k] is card k's zeroed flag buffer of
+// ring_mesh_flag_words() words (unused, and may be null, when c == 1); *epoch
+// is the card set's counter, incremented here. One launch of
+// ring_mesh_kernel a card, on the stream of its first entry, ordered by
+// events and flags as the note above says. x[e] must be ready on streams[e];
+// out[e] is ready there when the call's work on it is done. Returns
+// cudaErrorInvalidValue for arguments it does not take, else the first CUDA
+// error of a record, a wait or a launch (0 when every one was accepted).
+extern "C" int ring_mesh_launch(int n, const void* const* x, void* const* out,
+                                void* const* streams, int c, const int* devices,
+                                const int* card_of, void* const* flags, int L,
+                                unsigned long long* epoch) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n < 2 || n > kMeshMaxEntries || c < 1 || c > n || L < 0 || epoch == nullptr) return bad;
+  if (c > 1 && flags == nullptr) return bad;
+  int first[kMeshMaxEntries];
+  for (int k = 0; k < c; ++k) first[k] = -1;
+  bool pairs = L % 2 == 0;
+  for (int e = 0; e < n; ++e) {
+    const int k = card_of[e];
+    if (k < 0 || k >= c || (first[k] < 0 && (k > 0 && first[k - 1] < 0))) return bad;
+    if (first[k] < 0) first[k] = e;
+    pairs = pairs && aligned16(x[e]) && aligned16(out[e]);
+  }
+  if (first[c - 1] < 0) return bad;
   if (L == 0) return 0;
+  const int units = pairs ? L / 2 : L;
+  const int blocks = std::min((units + kMeshThreads - 1) / kMeshThreads, kMeshMaxBlocks);
+  MeshArgs a{};
+  for (int e = 0; e < n; ++e) a.x[e] = static_cast<const int64_t*>(x[e]);
+  for (int k = 0; k < c; ++k) {
+    a.flags[k] = c > 1 ? static_cast<unsigned long long*>(flags[k]) : nullptr;
+  }
+  a.n = n;
+  a.c = c;
+  a.L = L;
   std::lock_guard<std::mutex> guard(g_mesh_mu);
   KeepDevice keep;
-  std::array<cudaEvent_t, 2>* ev[64];
-  if (n > 64) return static_cast<int>(cudaErrorInvalidValue);
+  a.epoch = ++*epoch;
   cudaError_t err;
-  for (int d = 0; d < n; ++d) {
-    if ((err = use_device(devices[d])) != cudaSuccess) return static_cast<int>(err);
-    if ((err = entry_events(d, devices[d], &ev[d])) != cudaSuccess) return static_cast<int>(err);
-    // "hop -1": x[d] is ready on d's stream
-    err = cudaEventRecord((*ev[d])[1], static_cast<cudaStream_t>(streams[d]));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (L + kThreads - 1) / kThreads;
-  for (int h = 0; h < n - 1; ++h) {
-    const int prev = (h + 1) % 2;  // parity of hop h - 1
-    for (int d = 0; d < n; ++d) {
-      const int left = (d + n - 1) % n, right = (d + 1) % n;
-      auto st = static_cast<cudaStream_t>(streams[d]);
-      if ((err = use_device(devices[d])) != cudaSuccess) return static_cast<int>(err);
-      if ((err = cudaStreamWaitEvent(st, (*ev[left])[prev], 0)) != cudaSuccess)
-        return static_cast<int>(err);
-      if (h > 0 && (err = cudaStreamWaitEvent(st, (*ev[right])[prev], 0)) != cudaSuccess)
-        return static_cast<int>(err);
-      const auto* src = h == 0 ? static_cast<const int64_t*>(x[left])
-                               : static_cast<const int64_t*>(comm[left]) +
-                                     static_cast<int64_t>(h % 2) * L;
-      const auto* own = h == 0 ? static_cast<const int64_t*>(x[d]) : nullptr;
-      auto* fwd = h == n - 2 ? nullptr
-                             : static_cast<int64_t*>(comm[d]) +
-                                   static_cast<int64_t>((h + 1) % 2) * L;
-      ring_hop_kernel<<<blocks, kThreads, 0, st>>>(src, own, fwd, static_cast<int64_t*>(out[d]),
-                                                   L);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      if ((err = cudaEventRecord((*ev[d])[h % 2], st)) != cudaSuccess)
+  for (int k = 0; k < c; ++k) {
+    if ((err = use_device(devices[k])) != cudaSuccess) return static_cast<int>(err);
+    auto launch_st = static_cast<cudaStream_t>(streams[first[k]]);
+    cudaEvent_t ev;
+    a.me = k;
+    a.n_out = 0;
+    for (int e = first[k]; e < n; ++e) {
+      if (card_of[e] != k) continue;
+      a.out[a.n_out++] = static_cast<int64_t*>(out[e]);
+      if (e == first[k]) continue;
+      // entry e's input is ready on its own stream
+      auto st = static_cast<cudaStream_t>(streams[e]);
+      if ((err = stream_event(st, &ev)) != cudaSuccess) return static_cast<int>(err);
+      if ((err = cudaEventRecord(ev, st)) != cudaSuccess) return static_cast<int>(err);
+      if ((err = cudaStreamWaitEvent(launch_st, ev, 0)) != cudaSuccess)
         return static_cast<int>(err);
     }
-  }
-  // the last hop's send: d's buffer (and x[d]) was read by d + 1 last
-  const int last = (n - 2) % 2;
-  for (int d = 0; d < n; ++d) {
-    if ((err = use_device(devices[d])) != cudaSuccess) return static_cast<int>(err);
-    err = cudaStreamWaitEvent(static_cast<cudaStream_t>(streams[d]), (*ev[(d + 1) % n])[last], 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (pairs) {
+      ring_mesh_kernel<true><<<blocks, kMeshThreads, 0, launch_st>>>(a);
+    } else {
+      ring_mesh_kernel<false><<<blocks, kMeshThreads, 0, launch_st>>>(a);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (a.n_out == 1) continue;
+    // the card's other entries: their sums (and their inputs' last reader)
+    // are behind the launch
+    if ((err = stream_event(launch_st, &ev)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaEventRecord(ev, launch_st)) != cudaSuccess) return static_cast<int>(err);
+    for (int e = first[k] + 1; e < n; ++e) {
+      if (card_of[e] != k) continue;
+      err = cudaStreamWaitEvent(static_cast<cudaStream_t>(streams[e]), ev, 0);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return 0;
 }

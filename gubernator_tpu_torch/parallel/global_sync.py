@@ -27,8 +27,9 @@ the config, and its work goes on its own stream. The deltas are
 all-reduced; each entry runs the sharded decide on its own table with the
 lanes it does not own set to -1; each entry's owner-masked i64[4G]
 response columns are all-reduced into the mirror. "ring" is the cross-card
-ring (ops/ring.py ring_all_reduce_mesh, two rings a step as the JAX package
-takes two collective ids); "psum" is the plain reference, a sum of copies
+all-reduce (ops/ring.py ring_all_reduce_mesh, two a step as the JAX package
+takes two collective ids; on the cards one launch a card, the Pallas ring's
+hops summed in one pass); "psum" is the plain reference, a sum of copies
 gathered onto entry 0 and copied back to every entry.
 """
 

@@ -13,7 +13,10 @@ MeshPlan places the R x S owners in one of two ways:
   holds its own vacant i64[1, 1, C, 8] table on its own device and its own
   stream, and each kernel launches once an entry. A device may repeat: four
   entries that all name cuda:0 run the code that four distinct cards run,
-  with local pointers where distinct cards have peer pointers.
+  each on its own stream, but for the cross-card all-reduce, which
+  launches once a card (ops/ring.py): it sums entries that share a card in
+  one pass through local pointers, and reads the other cards' entries
+  through peer pointers behind flags in peer memory.
 
 The owner hash is the same in both placements and both packages, so a key
 has the same owner everywhere; owner o is mesh entry o (row-major, as the

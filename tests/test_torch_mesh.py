@@ -20,12 +20,16 @@ plain versions run. Held here:
   hbm_bytes and the keyspace harvest on a mesh engine;
 - the daemon's choice with four cards: one owner a card, stopped before
   any card is touched;
-- make_mesh's contract, the peer-access rule of the CUDA wrapper (with a
-  stand-in library), and make_mesh's counterpart in the public names.
+- make_mesh's contract, the CUDA wrapper of the cross-card all-reduce
+  with a stand-in library (the grouping by card, one entry-point call an
+  all-reduce, its arguments, the launch count, the epoch, the flag buffers,
+  the peer-access rule, the limits), and make_mesh's counterpart in the
+  public names.
 Tolerance: none, every field is an integer.
 """
 
 import collections.abc
+import contextlib
 import dataclasses
 import inspect
 import random
@@ -126,9 +130,11 @@ def test_mesh_ring_wrapper_refuses_cpu_tensors():
 
 
 def test_peer_access_for_every_pair_of_neighbours(monkeypatch):
-    """Distinct cards: each ordered pair of ring neighbours asked once and
-    enabled once; a card repeated needs nothing; a pair that cannot reach
-    raises, naming both cards (no copy through the host)."""
+    """Distinct cards: every ordered pair of the set's distinct cards asked
+    once and enabled once (each card's kernel reads every other card's
+    inputs and flags, not only its left neighbour's); a card repeated needs
+    nothing; a pair that cannot reach raises, naming both cards (no copy
+    through the host)."""
     monkeypatch.setattr(rk, "_peers", set())
     asked, enabled = [], []
 
@@ -140,16 +146,149 @@ def test_peer_access_for_every_pair_of_neighbours(monkeypatch):
     k = types.SimpleNamespace(ring_can_access_peer=can,
                               ring_enable_peer=lambda a, b: enabled.append((a, b)) or 0)
     rk._enable_peers(k, [0, 1, 2, 3])
-    want = {(0, 3), (3, 0), (1, 0), (0, 1), (2, 1), (1, 2), (3, 2), (2, 3)}
-    assert set(enabled) == want and len(enabled) == len(want)
+    want = {(a, b) for a in range(4) for b in range(4) if a != b}
+    assert set(enabled) == want and len(enabled) == len(want) == 12
     rk._enable_peers(k, [0, 1, 2, 3])  # once a pair
     assert len(enabled) == len(want)
     asked.clear()
-    rk._enable_peers(k, [5, 5, 5])
+    rk._enable_peers(k, [5])
     assert asked == []
     k.ring_can_access_peer = lambda a, b, out: can(a, b, out, allow=lambda a, b: b != 7)
     with pytest.raises(RuntimeError, match="cuda:6 cannot read cuda:7"):
         rk._enable_peers(k, [6, 7])
+
+
+class _FakeStream:
+    """A stand-in torch.cuda.Stream: its card and a distinct handle."""
+
+    handles = iter(range(0x1000, 0x100000, 0x10))
+
+    def __init__(self, device):
+        self.device = torch.device("cuda", device)
+        self.cuda_stream = next(self.handles)
+
+
+@pytest.fixture
+def fake_mesh(monkeypatch):
+    """ring_all_reduce_mesh_cuda on CPU tensors that say which card they
+    stand for (t.card), with a stand-in library whose entry point records
+    its arguments and, as csrc/ring.cu does, increments the card set's
+    epoch; flag buffers and streams made by stand-ins."""
+    calls, flags_made = [], []
+
+    def launch(n, x, out, streams, c, devices, card_of, flags, L, epoch):
+        epoch._obj.value += 1
+        calls.append(dict(n=n, x=list(x[:n]), out=list(out[:n]), streams=list(streams[:n]),
+                          c=c, devices=list(devices[:c]), card_of=list(card_of[:n]),
+                          flags=None if flags is None else list(flags[:c]), L=L,
+                          epoch=epoch._obj.value))
+        return 0
+
+    k = types.SimpleNamespace(ring_mesh_launch=launch, max_mesh_entries=64, flag_words=512,
+                              ring_can_access_peer=lambda a, b, out: setattr(out._obj, "value", 1)
+                              or 0,
+                              ring_enable_peer=lambda a, b: 0)
+    monkeypatch.setattr(rk, "_kernels", k)
+    for name, fresh in (("_streams", {}), ("_sets", {}), ("_peers", set())):
+        monkeypatch.setattr(rk, name, fresh)
+    monkeypatch.setattr(rk._launch, "cuda_index", lambda t, what: t.card)
+    monkeypatch.setattr(rk._launch, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda st: contextlib.nullcontext())
+    monkeypatch.setattr(rk, "_new_flags", lambda card, st, words: flags_made.append(
+        (card, st)) or torch.zeros(words, dtype=torch.int64))
+    return types.SimpleNamespace(calls=calls, flags_made=flags_made)
+
+
+def _entries(layout, length=6, seed=0):
+    rng = np.random.RandomState(seed)
+    xs = []
+    for card in layout:
+        x = torch.from_numpy(rng.randint(-9, 9, length).astype(np.int64))
+        x.card = card
+        xs.append(x)
+    return xs
+
+
+@pytest.mark.parametrize("layout,cards,entries", [
+    ([0] * 8, (0,), ((0, 1, 2, 3, 4, 5, 6, 7),)),
+    ([0, 1, 2, 3], (0, 1, 2, 3), ((0,), (1,), (2,), (3,))),
+    ([0, 1, 0, 1], (0, 1), ((0, 2), (1, 3))),
+    ([3, 1, 3], (3, 1), ((0, 2), (1,))),
+])
+def test_mesh_allreduce_one_launch_a_card(fake_mesh, layout, cards, entries):
+    """The entries grouped by card (cards in order of first appearance);
+    one C call an all-reduce with the n inputs and outputs in entry order,
+    each card's launch on its first entry's stream; the launch count grows
+    by the number of cards; the epoch strictly increases; a card set's
+    flag buffers (two cards or more) are made once, on the launch
+    streams."""
+    assert rk.group_by_card(layout) == (cards, entries)
+    c = len(cards)
+    epochs = []
+    for call in range(3):
+        xs = _entries(layout, seed=call)
+        before = rk.launch_counts["ring_all_reduce_mesh"]
+        outs = rk.ring_all_reduce_mesh_cuda(xs)
+        assert rk.launch_counts["ring_all_reduce_mesh"] - before == c
+        assert len(fake_mesh.calls) == call + 1
+        got = fake_mesh.calls[-1]
+        streams = rk.entry_streams(layout)
+        assert got["n"] == len(layout) and got["c"] == c and got["L"] == 6
+        assert got["x"] == [x.data_ptr() for x in xs]
+        assert got["out"] == [o.data_ptr() for o in outs]
+        assert got["streams"] == [s.cuda_stream for s in streams]
+        assert got["devices"] == list(cards)
+        assert got["card_of"] == [cards.index(i) for i in layout]
+        cs = rk._sets[tuple(layout)]
+        assert cs.launch == tuple(streams[e[0]] for e in entries)
+        assert [s.device.index for s in cs.launch] == list(cards)
+        assert got["flags"] == (None if c == 1 else [f.data_ptr() for f in cs.flags])
+        assert len(outs) == len(layout) and len({o.data_ptr() for o in outs}) == len(layout)
+        epochs.append(got["epoch"])
+    assert epochs == sorted(set(epochs)) and epochs[0] >= 1
+    assert fake_mesh.flags_made == ([] if c == 1 else list(zip(cards, cs.launch)))
+
+
+def test_mesh_allreduce_flag_buffers_a_card_set(fake_mesh):
+    """Two card sets over the same cards in another order (or fewer) are
+    two sets: each its own streams, flag buffers and epoch."""
+    rk.ring_all_reduce_mesh_cuda(_entries([0, 1]))
+    rk.ring_all_reduce_mesh_cuda(_entries([1, 0]))
+    rk.ring_all_reduce_mesh_cuda(_entries([0, 1]))
+    assert [card for card, _ in fake_mesh.flags_made] == [0, 1, 1, 0]
+    assert [c["epoch"] for c in fake_mesh.calls] == [1, 1, 2]
+    assert rk._sets[(0, 1)].flags[0] is not rk._sets[(1, 0)].flags[1]
+
+
+def test_mesh_allreduce_refuses_more_than_64_entries(fake_mesh):
+    rk.ring_all_reduce_mesh_cuda(_entries([0] * 64, length=2))
+    with pytest.raises(ValueError, match="at most 64 entries, got 65"):
+        rk.ring_all_reduce_mesh_cuda(_entries([0] * 65, length=2))
+    assert len(fake_mesh.calls) == 1
+
+
+def test_mesh_allreduce_refuses_other_streams(fake_mesh):
+    """A card set's flags keep their epochs in the launch order of its own
+    streams: an all-reduce whose entry streams are no longer the card
+    set's raises, and launches nothing."""
+    rk.ring_all_reduce_mesh_cuda(_entries([0, 1]))
+    rk._streams[(0, 1)] = (_FakeStream(0), _FakeStream(1))
+    with pytest.raises(ValueError, match="other streams than its card set's own"):
+        rk.ring_all_reduce_mesh_cuda(_entries([0, 1]))
+    assert len(fake_mesh.calls) == 1
+
+
+def test_mesh_allreduce_empty_and_single_entry(fake_mesh):
+    """L = 0 reaches the entry point (which launches nothing) and counts no
+    launch; one entry is a copy on its stream, with no call at all."""
+    before = rk.launch_counts["ring_all_reduce_mesh"]
+    outs = rk.ring_all_reduce_mesh_cuda(_entries([0, 1], length=0))
+    assert [o.shape[0] for o in outs] == [0, 0]
+    assert fake_mesh.calls[-1]["L"] == 0
+    (one,) = rk.ring_all_reduce_mesh_cuda(_entries([2]))
+    assert len(fake_mesh.calls) == 1 and one.shape[0] == 6
+    assert rk.launch_counts["ring_all_reduce_mesh"] == before
 
 
 # -------------------------------------------------------------- the engine
